@@ -62,7 +62,8 @@ def build(source):
 
 class Kernel:
     """One CUDA source: its library, loaded on first use, and a count of the
-    launches its wrapper made (one per call of the C entry point)."""
+    launches its wrapper made (one per call of a C entry point), in all and
+    by the wrapper's name for the call (`by_entry`)."""
 
     def __init__(self, source, signatures):
         self.source = source
@@ -70,6 +71,15 @@ class Kernel:
         self._lib = None
         self.build_log = ""
         self.launches = 0
+        self.by_entry = {}
+
+    def launched(self, entry):
+        self.launches += 1
+        self.by_entry[entry] = self.by_entry.get(entry, 0) + 1
+
+    def reset_counts(self):
+        self.launches = 0
+        self.by_entry = {}
 
     @property
     def lib(self):

@@ -1,10 +1,9 @@
 # coding: utf-8
-"""Model builder and top-level inference halves, counterpart of
-deepvoice3_pytorch_tpu/builder.py.
+"""Model builder, the teacher-forced forward and the inference halves,
+counterpart of deepvoice3_pytorch_tpu/builder.py.
 
 Only the `deepvoice3` builder is ported so far; nyanko and
-deepvoice3_multispeaker, and the teacher-forced `model_forward`, follow in
-later work (ROADMAP.md)."""
+deepvoice3_multispeaker follow in later work (ROADMAP.md)."""
 
 from dataclasses import dataclass
 
@@ -113,6 +112,33 @@ def deepvoice3(n_vocab, embed_dim=256, mel_dim=80, linear_dim=513, r=4,
         speaker_embedding_weight_std=speaker_embedding_weight_std,
         freeze_embedding=freeze_embedding,
         trainable_positional_encodings=trainable_positional_encodings)
+
+
+def model_forward(params, cfg: TTSModelConfig, text_sequences, mel_targets, *,
+                  text_positions=None, frame_positions=None,
+                  input_lengths=None, training=False, generator=None):
+    """Teacher-forced full-model forward.
+
+    Returns (mel_outputs (B, T, mel), linear_outputs (B, T', linear),
+    alignments (n_att, B, T/r, T_k), done (B, T/r, 1))."""
+    fam = cfg.family
+    B = text_sequences.shape[0]
+    encoder_out = fam.encoder_apply(params["encoder"], cfg.encoder,
+                                    text_sequences, training=training,
+                                    generator=generator)
+    mel_outputs, alignments, done, decoder_states = fam.decoder_apply(
+        params["decoder"], cfg.decoder, encoder_out, mel_targets,
+        text_positions=text_positions, frame_positions=frame_positions,
+        lengths=input_lengths, training=training, generator=generator)
+    mel_outputs = mel_outputs.reshape(B, -1, cfg.mel_dim)
+    if cfg.use_decoder_state_for_postnet_input:
+        postnet_inputs = decoder_states.reshape(B, mel_outputs.shape[1], -1)
+    else:
+        postnet_inputs = mel_outputs
+    linear_outputs = fam.converter_apply(
+        params["converter"], cfg.converter, postnet_inputs,
+        training=training, generator=generator)
+    return mel_outputs, linear_outputs, alignments, done
 
 
 def model_decode(params, cfg: TTSModelConfig, text_sequences,

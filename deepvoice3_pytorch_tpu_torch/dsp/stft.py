@@ -1,11 +1,13 @@
 # coding: utf-8
-"""DSP helpers for waveform inversion, counterpart of
+"""DSP helpers for feature extraction and waveform inversion, counterpart of
 deepvoice3_pytorch_tpu/dsp/stft.py.
 
 Host-side constants (windows, mel basis, DFT matrices) are the JAX
 package's numpy code; the tensor functions take and return torch tensors on
 any device. The Griffin-Lim loop itself lives in dsp/gl_cuda.py.
 """
+
+import math
 
 import numpy as np
 import torch
@@ -102,10 +104,15 @@ def lws_num_frames(length, hop):
 
 
 def lws_pad(x, fft_size, hop):
-    """Zero-pad the tail so causal framing covers ceil(T/hop) frames."""
+    """Zero-pad the tail so causal framing covers ceil(T/hop) frames. Works
+    on numpy arrays or tensors."""
     T = x.shape[-1]
     need = (lws_num_frames(T, hop) - 1) * hop + fft_size
-    return torch.nn.functional.pad(x, (0, need - T)) if need > T else x
+    if need <= T:
+        return x
+    if isinstance(x, np.ndarray):
+        return np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, need - T)])
+    return torch.nn.functional.pad(x, (0, need - T))
 
 
 def stft(x, fft_size, hop, window):
@@ -148,6 +155,15 @@ def spsi_phase(magnitude, fft_size, hop):
 # ---------------------------------------------------------------------------
 # dB / normalization helpers (reference audio.py:79-93)
 # ---------------------------------------------------------------------------
+
+
+def amp_to_db(x, min_level_db=-100.0):
+    min_level = math.exp(min_level_db / 20.0 * math.log(10.0))
+    return 20.0 * torch.log10(torch.clamp_min(x, min_level))
+
+
+def normalize(S, min_level_db=-100.0):
+    return torch.clamp((S - min_level_db) / -min_level_db, 0.0, 1.0)
 
 
 def db_to_amp(x):

@@ -45,9 +45,10 @@ def build_config(hp, n_vocab):
     )
 
 
-def build_model(hp, n_vocab, seed=1234, device="cpu"):
+def build_model(hp, n_vocab, seed=1234, device="cuda"):
     """(cfg, params) with random params drawn from a CPU generator seeded
-    with `seed`, then moved to `device`."""
+    with `seed`, then moved to `device` (the card unless the caller asks
+    for the CPU)."""
     cfg = build_config(hp, n_vocab)
     params = builder_mod.model_init(cfg, torch.Generator().manual_seed(seed),
                                     device)

@@ -1,11 +1,12 @@
 # coding: utf-8
-"""DeepVoice3 encoder / decoder (inference half) / converter, counterpart of
+"""DeepVoice3 encoder / decoder / converter, counterpart of
 deepvoice3_pytorch_tpu/models/deepvoice3.py.
 
 Configs are the JAX package's frozen dataclasses; parameters are indexable
 nodes (`params.ParamTree` or nested dicts) with the JAX key paths. The
-teacher-forced `decoder_apply`, dropout and the multi-speaker paths are not
-ported yet.
+full-sequence applies take `training` and a `generator` for dropout, drawn
+in order from the one generator where the JAX package splits keys. The
+multi-speaker paths are not ported yet.
 """
 
 import math
@@ -20,6 +21,22 @@ from ..ops import core
 from ..ops.positional import position_encoding_init, sinusoidal_encoding
 
 SQRT_HALF = math.sqrt(0.5)
+
+
+class _GradMultiply(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def grad_multiply(x, scale):
+    """Identity forward; the gradient is multiplied by `scale`."""
+    return _GradMultiply.apply(x, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -75,10 +92,15 @@ def encoder_init(generator, cfg: EncoderConfig):
     }
 
 
-def encoder_apply(params, cfg: EncoderConfig, text_sequences):
+def encoder_apply(params, cfg: EncoderConfig, text_sequences, *,
+                  training=False, generator=None):
     """(B, T) int tokens -> (keys, values), each (B, T, embed_dim)."""
     x = core.embedding_apply(params["embed_tokens"], text_sequences)
-    keys = cb.stack_apply(params["layers"], cfg.specs, x)
+    x = core.dropout(generator, x, cfg.dropout, training)
+    keys = cb.stack_apply(params["layers"], cfg.specs, x, training=training,
+                          generator=generator)
+    if cfg.apply_grad_scaling and cfg.num_attention_layers:
+        keys = grad_multiply(keys, 1.0 / (2.0 * cfg.num_attention_layers))
     return keys, (keys + x) * SQRT_HALF
 
 
@@ -181,6 +203,58 @@ def decoder_init(generator, cfg: DecoderConfig):
                                       dropout=cfg.dropout, std_mul=4.0),
         "fc": core.linear_init(generator, cfg.in_dim * cfg.r, 1),
     }
+
+
+def decoder_apply(params, cfg: DecoderConfig, encoder_out, inputs, *,
+                  text_positions=None, frame_positions=None, lengths=None,
+                  training=False, generator=None):
+    """Teacher-forced decoder forward.
+
+    inputs: (B, T, in_dim) mel frames or (B, T // r, in_dim * r) grouped.
+    Returns (outputs (B, T//r, in_dim*r), alignments (n_att, B, T//r, T_k),
+    done (B, T//r, 1), decoder_states (B, T//r, C))."""
+    keys, values = encoder_out
+    B = keys.shape[0]
+    if inputs.shape[-1] == cfg.in_dim:
+        inputs = inputs.reshape(B, inputs.shape[1] // cfg.r,
+                                cfg.in_dim * cfg.r)
+    mask = (core.get_mask_from_lengths(lengths, keys.shape[1])
+            if cfg.use_memory_mask and lengths is not None else None)
+    if text_positions is not None:
+        keys = keys + sinusoidal_encoding(
+            text_positions, params["embed_keys_positions"]["w"],
+            cfg.key_position_rate)
+    frame_pos_embed = None
+    if frame_positions is not None:
+        frame_pos_embed = sinusoidal_encoding(
+            frame_positions, params["embed_query_positions"]["w"],
+            cfg.query_position_rate)
+
+    x = core.dropout(generator, inputs, cfg.dropout, training)
+    x = cb.stack_apply(params["prenet"], cfg.prenet_specs, x,
+                       training=training, generator=generator)
+    alignments = []
+    for p_conv, spec, p_attn, attn_spec in zip(
+            params["convs"], cfg.conv_specs, params["attention"],
+            cfg.attention_specs):
+        residual = x
+        x = cb.spec_apply(p_conv, spec, x, training=training,
+                          generator=generator)
+        if attn_spec is not None:
+            q = x if frame_pos_embed is None else x + frame_pos_embed
+            keys_i, values_i = attn_ops.project_keys_values(
+                p_attn, attn_spec, keys, values)
+            x, alignment = attn_ops.attention_apply(
+                p_attn, attn_spec, q, keys_i, values_i, mask=mask,
+                training=training, generator=generator)
+            alignments.append(alignment)
+        x = (x + residual) * SQRT_HALF
+
+    decoder_states = x
+    x = core.conv1d_apply(params["last_conv"], x)
+    outputs = torch.sigmoid(x)
+    done = torch.sigmoid(core.linear_apply(params["fc"], x))
+    return outputs, torch.stack(alignments), done, decoder_states
 
 
 def decoder_init_state(cfg: DecoderConfig, batch: int, device=None):
@@ -359,6 +433,9 @@ def converter_init(generator, cfg: ConverterConfig):
     return {"layers": cb.stack_init(generator, cfg.specs)}
 
 
-def converter_apply(params, cfg: ConverterConfig, x):
+def converter_apply(params, cfg: ConverterConfig, x, *, training=False,
+                    generator=None):
     """(B, T, in_dim) -> (B, T * upsampling, out_dim), sigmoid output."""
-    return torch.sigmoid(cb.stack_apply(params["layers"], cfg.specs, x))
+    return torch.sigmoid(cb.stack_apply(params["layers"], cfg.specs, x,
+                                        training=training,
+                                        generator=generator))

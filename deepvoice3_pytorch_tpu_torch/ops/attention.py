@@ -1,11 +1,13 @@
 # coding: utf-8
 """Single-head dot-product attention with monotonic windowing, counterpart of
-deepvoice3_pytorch_tpu/ops/attention.py (inference half).
+deepvoice3_pytorch_tpu/ops/attention.py.
 
 query proj -> QK^T -> padding mask -> optional monotonic window around a
-per-batch `last_attended` -> softmax -> AV -> sqrt(T_k) scale -> out proj
--> residual * sqrt(0.5). Key/value projections are applied once per
-utterance (`project_keys_values`), outside the decode loop."""
+per-batch `last_attended` -> softmax -> (dropout when training) -> AV ->
+sqrt(T_k) scale -> out proj -> residual * sqrt(0.5). Key/value projections
+are applied once per utterance (`project_keys_values`), outside the decode
+loop. Scores and softmax are f32 whatever the activations' type (bf16 under
+the mixed-precision train step), as in the JAX package."""
 
 import math
 from dataclasses import dataclass
@@ -55,15 +57,18 @@ def project_keys_values(params, spec: AttentionSpec, keys, values):
 
 
 def attention_apply(params, spec: AttentionSpec, query, keys, values, *,
-                    mask=None, last_attended=None):
+                    mask=None, last_attended=None, training=False,
+                    generator=None):
     """(B, T_q, C) queries over (B, T_k, E) keys/values, already passed
     through `project_keys_values`.
 
     mask: (B, T_k) True where PADDED. last_attended: (B,) int window centres
-    (None = no window). Returns (out (B, T_q, C), attn (B, T_q, T_k))."""
+    (None = no window). When training, the attention weights are dropped out
+    (rate spec.dropout) before the weighted sum. Returns (out (B, T_q, C),
+    attn (B, T_q, T_k) f32)."""
     residual = query
     x = core.linear_apply(params["query_proj"], query)          # (B, Tq, E)
-    scores = x @ keys.transpose(1, 2)                           # (B, Tq, Tk)
+    scores = x.float() @ keys.float().transpose(1, 2)           # (B, Tq, Tk)
     if mask is not None:
         scores = scores.masked_fill(mask[:, None, :], MASK_VALUE)
     if last_attended is not None:
@@ -73,7 +78,9 @@ def attention_apply(params, spec: AttentionSpec, query, keys, values, *,
               (idx >= la + spec.window_ahead)
         scores = scores.masked_fill(win[:, None, :], MASK_VALUE)
     attn = torch.softmax(scores, dim=-1)
-    x = attn @ values
+    x = core.dropout(generator, attn.to(values.dtype), spec.dropout,
+                     training)
+    x = x @ values
     # scale by T_k * sqrt(1/T_k) == sqrt(T_k), T_k the PADDED length
     s = values.shape[1]
     x = x * (s * math.sqrt(1.0 / s))

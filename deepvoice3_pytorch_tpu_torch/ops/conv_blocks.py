@@ -1,12 +1,12 @@
 # coding: utf-8
 """Conv stack building blocks, counterpart of
-deepvoice3_pytorch_tpu/ops/conv_blocks.py (inference half).
+deepvoice3_pytorch_tpu/ops/conv_blocks.py.
 
 A stack is a static tuple of `ConvSpec`s plus a parallel list of parameter
-nodes. The same specs drive the full-sequence path (`stack_apply`) and the
-one-frame path against ring buffers (`stack_step`). Training-time dropout,
-the highway blocks and the multi-speaker softsign bias are not ported yet;
-specs that need them raise.
+nodes. The same specs drive the full-sequence path (`stack_apply`, with
+input dropout before each GLU conv when training) and the one-frame path
+against ring buffers (`stack_step`). The highway blocks and the
+multi-speaker softsign bias are not ported yet; specs that need them raise.
 """
 
 import math
@@ -102,8 +102,10 @@ def _gate(spec, y, residual):
     return (x + residual) * SQRT_HALF if spec.residual else x
 
 
-def spec_apply(params, spec: ConvSpec, x):
-    """Apply one layer to (B, T, C). Returns (B, T', C')."""
+def spec_apply(params, spec: ConvSpec, x, *, training=False, generator=None):
+    """Apply one layer to (B, T, C). Returns (B, T', C'). When training, a
+    GLU layer's input is dropped out (rate spec.dropout) before the conv;
+    the residual is the undropped input."""
     _check_supported(spec)
     if spec.kind in ("conv1x1", "conv"):
         y = core.conv1d_apply(params["conv"], x, dilation=spec.dilation,
@@ -112,14 +114,16 @@ def spec_apply(params, spec: ConvSpec, x):
     if spec.kind == "convT":
         return core.conv_transpose1d_apply(params["conv"], x,
                                            stride=spec.stride)
+    residual = x
+    x = core.dropout(generator, x, spec.dropout, training)
     y = core.conv1d_apply(params["conv"], x, dilation=spec.dilation,
                           causal=spec.causal)
-    return _gate(spec, y, x)
+    return _gate(spec, y, residual)
 
 
-def stack_apply(params, specs, x):
+def stack_apply(params, specs, x, *, training=False, generator=None):
     for p, s in zip(params, specs):
-        x = spec_apply(p, s, x)
+        x = spec_apply(p, s, x, training=training, generator=generator)
     return x
 
 

@@ -13,12 +13,21 @@ axes (0, 1), ConvTranspose1d over axes (0, 2).
 
 A parameter argument `p` is anything indexable by name (`p["v"]`): a
 `params.ParamTree` node or a plain dict of tensors.
+
+Convolutions with kw > 1 lower one of two ways, chosen per thread by the
+`conv_mode` context (the counterpart of the JAX package's
+`conv_lowering`): "library" (the default, as the JAX default "xla") calls
+`F.conv1d`; "kernel" (the counterpart of "pallas") calls the tap-accumulating
+kernel B3 through `ops/conv_cuda.conv1d_taps`, which the train step uses.
 """
 
+import contextvars
 import math
 
 import torch
 import torch.nn.functional as F
+
+from . import conv_cuda
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +115,29 @@ def embedding_apply(p, ids):
     return p["w"][ids]
 
 
+CONV_MODES = ("library", "kernel")
+_conv_mode = contextvars.ContextVar("dv3_torch_conv_mode", default="library")
+
+
+class conv_mode:
+    """`with conv_mode("kernel"):` routes every kw > 1 conv1d_apply inside
+    the block through kernel B3; "library" through F.conv1d. Per thread and
+    exception-safe (ContextVar token reset)."""
+
+    def __init__(self, mode):
+        if mode not in CONV_MODES:
+            raise ValueError("conv_mode must be one of %s, got %r"
+                             % (CONV_MODES, mode))
+        self.mode = mode
+
+    def __enter__(self):
+        self._token = _conv_mode.set(self.mode)
+        return self
+
+    def __exit__(self, *exc):
+        _conv_mode.reset(self._token)
+
+
 def conv1d_apply(p, x, *, dilation=1, causal=False):
     """1-D convolution on (B, T, C), output length == input length.
 
@@ -119,6 +151,8 @@ def conv1d_apply(p, x, *, dilation=1, causal=False):
         pad = ((kw - 1) * dilation, 0)
     else:
         pad = ((kw - 1) // 2 * dilation,) * 2
+    if _conv_mode.get() == "kernel":
+        return conv_cuda.conv1d_taps(x, w, p["b"], pad, dilation)
     xp = F.pad(x.transpose(1, 2), pad)                   # (B, C, T + pads)
     y = F.conv1d(xp, w.permute(2, 1, 0), dilation=dilation)
     return y.transpose(1, 2) + p["b"]
@@ -146,6 +180,24 @@ def glu(x, dim=-1):
 
 def softsign(x):
     return x / (1.0 + torch.abs(x))
+
+
+def dropout(generator, x, rate, training):
+    """Inverted dropout (F.dropout's train-time semantics): keep each element
+    with probability 1 - rate, scaled by 1 / (1 - rate). The keep mask is a
+    bernoulli draw from `generator`, which must live on x's device."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(
+        keep, generator=generator)
+    return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
+
+
+def sequence_mask(lengths, max_len):
+    """(B,) lengths -> (B, max_len) f32 mask, 1 where valid."""
+    pos = torch.arange(max_len, device=lengths.device)[None, :]
+    return (pos < lengths[:, None]).float()
 
 
 def get_mask_from_lengths(lengths, max_len):

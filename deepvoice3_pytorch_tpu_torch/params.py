@@ -33,17 +33,24 @@ class ParamTree(nn.Module):
 
     @classmethod
     def from_state_dict(cls, state_dict):
-        """Build the tree from dotted keys. A run of digit keys becomes a
-        list; indices with no leaves (the JAX package's empty `{}` entries,
-        e.g. decoder layers without attention) become empty nodes."""
-        nested = {}
-        for key, value in state_dict.items():
-            parts = key.split(".")
-            d = nested
-            for part in parts[:-1]:
-                d = d.setdefault(part, {})
-            d[parts[-1]] = value
-        return cls(_listify(nested))
+        """Build the tree from dotted keys (see `nest`)."""
+        return cls(nest(state_dict))
+
+
+def nest(flat):
+    """Dotted key -> tensor mapping to the nested dict/list tree, with the
+    tensors themselves as leaves (so a tree of cast or differentiable
+    tensors indexes like the parameters). A run of digit keys becomes a
+    list; indices with no leaves (the JAX package's empty `{}` entries, e.g.
+    decoder layers without attention) become empty dicts."""
+    nested = {}
+    for key, value in flat.items():
+        parts = key.split(".")
+        d = nested
+        for part in parts[:-1]:
+            d = d.setdefault(part, {})
+        d[parts[-1]] = value
+    return _listify(nested)
 
 
 def _listify(d):
@@ -114,9 +121,10 @@ def _init_tree(cfg, generator):
     }
 
 
-def model_init(cfg, generator, device=None):
+def model_init(cfg, generator, device="cuda"):
     """Random parameters with the shapes and init distributions of the JAX
     package's `builder.model_init`, drawn from `generator` (values differ
-    from JAX's for the same seed). Returns a `ParamTree` on `device`."""
+    from JAX's for the same seed). Returns a `ParamTree` on `device`: the
+    card unless the caller asks for the CPU."""
     tree = _init_tree(cfg, generator)
-    return ParamTree(tree).to(device or generator.device)
+    return ParamTree(tree).to(device)

@@ -2,7 +2,9 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small shapes that reach the cases chip_smoke.py does not: chunk hand-off
 of the decode carry across launches, non-monotonic attention, no mask,
-long padded texts, tile edges of the Griffin-Lim GEMMs.
+long padded texts, tile edges of the Griffin-Lim GEMMs, and the ragged
+edges of the tap-accumulating conv (T, C, N off the tiles, B = 1, taps
+wholly in the pad) with the determinism of its weight gradient.
 
 Marked `cuda`: each test skips when no CUDA device is present. On a machine
 with a card (the JAX package need not be installed):
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 from deepvoice3_pytorch_tpu_torch import builder
+from deepvoice3_pytorch_tpu_torch.ops import conv_cuda
 from deepvoice3_pytorch_tpu_torch.dsp import gl_cuda
 from deepvoice3_pytorch_tpu_torch.dsp import stft as dsp
 from deepvoice3_pytorch_tpu_torch.models import deepvoice3 as dv3
@@ -130,3 +133,92 @@ def test_griffin_lim_kernel_rejects_bad_framing(dev):
     S = torch.rand(1, 8, 513, device=dev)
     with pytest.raises(ValueError):
         gl_cuda.griffin_lim(S, 1024, 240, torch.ones(1024).numpy())
+
+
+CONV_CASES = [  # B, T, C, N, kw, dil, causal
+    (2, 37, 20, 70, 3, 1, False),      # T, C, N off every tile
+    (1, 130, 64, 128, 3, 3, True),     # B = 1, causal
+    (3, 40, 16, 24, 3, 27, False),     # dilation 27, T < 54: taps in the pad
+    (2, 300, 256, 512, 3, 9, True),    # decoder width, several row tiles
+    (4, 33, 24, 8, 5, 1, False),       # kw 5, N below one tile
+]
+
+
+def _conv_inputs(dev, B, T, C, N, kw, dil, causal, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, T, C, generator=g)
+    w = torch.randn(kw, C, N, generator=g) / (kw * C) ** 0.5
+    b = torch.randn(N, generator=g) * 0.1
+    dy = torch.randn(B, T, N, generator=g)
+    pad = ((kw - 1) * dil, 0) if causal else ((kw - 1) // 2 * dil,) * 2
+    return [a.to(dev, dtype) for a in (x, w, b, dy)] + [pad]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,C,N,kw,dil,causal", CONV_CASES)
+def test_conv_taps_kernel_matches_plain(dev, dtype, B, T, C, N, kw, dil,
+                                        causal):
+    """Forward, dgrad and wgrad kernels against the plain versions on the
+    same card. f32: 1e-5 of the output's scale (the kernel's FMA order
+    against the plain matmul's). bf16: the plain version computes in f32
+    from the same bf16 operands and rounds once, so the bar is one bf16
+    ulp of the largest value (2^-7 relative) for the bf16 outputs and 1e-5
+    for the f32 weight gradient."""
+    x, w, b, dy, pad = _conv_inputs(dev, B, T, C, N, kw, dil, causal, dtype)
+    conv_cuda.KERNEL.reset_counts()
+    pairs = [
+        (conv_cuda.conv_fwd(x, w, b, pad, dil),
+         conv_cuda.conv1d_taps_plain(x, w, b, pad, dil), dtype),
+        (conv_cuda.conv_dgrad(dy, w, pad, dil),
+         conv_cuda.conv1d_taps_plain(dy, w.flip(0).transpose(1, 2), None,
+                                     (pad[1], pad[0]), dil), dtype),
+        (conv_cuda.conv_wgrad(x, dy, pad, dil, kw),
+         conv_cuda.conv1d_taps_wgrad_plain(x, dy, pad, dil, kw),
+         torch.float32),
+    ]
+    torch.cuda.synchronize()
+    assert conv_cuda.KERNEL.by_entry == {"fwd": 2, "wgrad": 1}
+    for got, want, out_dtype in pairs:
+        assert got.dtype == out_dtype and got.shape == want.shape
+        scale = max(1.0, float(want.float().abs().max()))
+        tol = 2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-5
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_taps_wgrad_is_deterministic(dev, dtype):
+    """Split rows summed in a fixed order, no atomics: bit-equal runs."""
+    x, w, b, dy, pad = _conv_inputs(dev, 8, 200, 256, 512, 3, 3, False,
+                                    dtype)
+    splits, _ = conv_cuda.wgrad_splits(8, 200, 256, 512, 3, dtype)
+    assert splits > 1
+    a = conv_cuda.conv_wgrad(x, dy, pad, 3, 3)
+    c = conv_cuda.conv_wgrad(x, dy, pad, 3, 3)
+    assert torch.equal(a, c)
+
+
+def test_conv_taps_autograd_runs_three_kernels(dev):
+    """One differentiable conv: forward, then dgrad + wgrad in backward;
+    gradients equal the plain version's through autograd."""
+    x, w, b, dy, pad = _conv_inputs(dev, 2, 50, 32, 64, 3, 1, True,
+                                    torch.float32)
+    leaves = [a.clone().requires_grad_(True) for a in (x, w, b)]
+    conv_cuda.KERNEL.reset_counts()
+    conv_cuda.conv1d_taps(*leaves, pad, 1).backward(dy)
+    assert conv_cuda.KERNEL.by_entry == {"fwd": 2, "wgrad": 1}
+    ref = [a.clone().requires_grad_(True) for a in (x, w, b)]
+    conv_cuda.conv1d_taps_plain(*ref, pad, 1).backward(dy)
+    for got, want in zip(leaves, ref):
+        assert torch.allclose(got.grad, want.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_conv_taps_kernel_rejects_bad_calls(dev):
+    x = torch.zeros(1, 8, 4, device=dev)
+    w = torch.zeros(3, 4, 4, device=dev)
+    with pytest.raises(ValueError):
+        conv_cuda.conv1d_taps(x, w, None, (1, 0), 1)
+    with pytest.raises(TypeError):
+        conv_cuda.conv_fwd(x.half(), w.half(), None, (1, 1), 1)
+    with pytest.raises(ValueError):
+        conv_cuda.conv_fwd(x, w.to(torch.bfloat16), None, (1, 1), 1)

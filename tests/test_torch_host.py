@@ -40,6 +40,10 @@ def test_port_imports_without_jax():
             "sys.modules['jax'] = None\n"
             "import deepvoice3_pytorch_tpu_torch.synthesis\n"
             "import deepvoice3_pytorch_tpu_torch.model_builder\n"
+            "import deepvoice3_pytorch_tpu_torch.training.trainer\n"
+            "import deepvoice3_pytorch_tpu_torch.training.dataset\n"
+            "import deepvoice3_pytorch_tpu_torch.utils.synthcorpus\n"
+            "import deepvoice3_pytorch_tpu_torch.ops.conv_cuda\n"
             "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]\n"
             "       or m.startswith('deepvoice3_pytorch_tpu.')\n"
             "       or m == 'deepvoice3_pytorch_tpu']\n"
@@ -98,8 +102,8 @@ def test_params_from_jax_round_trip_and_strict_check():
 def test_model_init_shapes_equal_jax():
     cfg_j, cfg_t = tiny_configs()
     want = {k: v.shape for k, v in flatten_tree(jax_params(cfg_j)).items()}
-    p1 = model_init(cfg_t, torch.Generator().manual_seed(0))
-    p2 = model_init(cfg_t, torch.Generator().manual_seed(0))
+    p1 = model_init(cfg_t, torch.Generator().manual_seed(0), device="cpu")
+    p2 = model_init(cfg_t, torch.Generator().manual_seed(0), device="cpu")
     got = {k: tuple(v.shape) for k, v in p1.state_dict().items()}
     assert got == want
     for (k, a), b in zip(p1.state_dict().items(), p2.state_dict().values()):
@@ -107,11 +111,20 @@ def test_model_init_shapes_equal_jax():
     assert not any(p.requires_grad for p in p1.parameters())
 
 
+@pytest.mark.parametrize("fn", [model_init, model_builder.build_model])
+def test_entry_points_default_to_the_card(fn):
+    """Parameters land on the card unless the caller asks for the CPU."""
+    import inspect
+
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
 def test_build_model_ljspeech_preset():
     hp = t_hparams.default_hparams()
     with open(os.path.join(REPO, "presets", "deepvoice3_ljspeech.json")) as f:
         hp.parse_json(f.read())
-    cfg, params = model_builder.build_model(hp, t_en.n_vocab, seed=0)
+    cfg, params = model_builder.build_model(hp, t_en.n_vocab, seed=0,
+                                            device="cpu")
     assert cfg.decoder.convolutions[0][0] == 256
     assert cfg.encoder.convolutions[0][0] == 512
     assert cfg.converter.time_upsampling == 4
