@@ -28,14 +28,41 @@ Phases, one line each; any failure exits non-zero before the result lines:
      |plain - plain in float64| per output, and last_attended exact;
   6. kernel B2 (Griffin-Lim) against its plain version at (32, 400, 513),
      16 iterations, SPSI start, momentum 0.9;
-  7. a small input through tts_batch on the GPU against the same input on
-     the CPU (plain versions), as the reference;
-  8. the synthesis main path: tts_batch with the LJSpeech preset at full
+  7. B2's streaming modes (phase `B2_stream`) against the plain version at
+     a stream window's shape, (8, 152, 513) x 32 iterations, with a given
+     start, 16 pinned frames and the spectrum returned: the B2 bars, and
+     the pinned frames of the returned spectrum equal to the start
+     exactly; kernel ms, plain ms and the bound;
+  8. the probe kernel P (phase `P`: B2 with the windows applied in f32
+     outside the bf16 DFT matrices) against its plain version at the
+     probe's shape, (32, 600, 513) x 16; then what the probe measured:
+     spectral convergence on tests/data/dsp_golden_linear.npy (kernel and
+     plain, bar 1.05x), microseconds per item-iteration from the 4- and
+     16-iteration times, and the folded B2's time at the same shape;
+  9. a small input through tts_batch, and a small stream through
+     tts_stream, on the GPU against the same input on the CPU (plain
+     versions), as the reference;
+ 10. the synthesis main path: tts_batch with the LJSpeech preset at full
      width, seeded random weights, 32 sentences and then 8,
      max_decoder_steps=200; checks the waveforms and that B1's and B2's
      launch counts went up; prints wall time per call and the real-time
      factor;
-  9. the training main path: the LJSpeech preset at full width, seeded
+ 11. the streaming main path (phase `stream`): tts_stream at the same
+     preset and weights, first chunk 16 frames then 32, up to 200 steps:
+     measured as bench.py measures it at B = 1 and B = 8: after a warm-up,
+     five streams, and of the one with the least time to the first next()
+     of the generator, ttfa_ms and the stream RTF (decoded-length audio
+     over the whole stream's wall time); the first chunk's stages (decode,
+     converter window, Griffin-Lim window, fetches), a torch.profiler
+     breakdown of one B = 1 stream; fails unless B1 and B2's pinned mode
+     were launched and B3 was not, and unless the stream's decoded steps
+     equal tts_batch's;
+ 12. the HTTP engine (phase `serve`): TTSEngine + make_handler on a
+     ThreadingHTTPServer at 127.0.0.1:0, /healthz, three /tts requests
+     (client-side time to the first PCM bytes), a 400, /stats; checks the
+     WAV header, the sample rate and that each PCM length equals
+     decoded_samples of the stream's final chunk;
+ 13. the training main path: the LJSpeech preset at full width, seeded
      random weights, make_train_step at bench.py's shapes (B = 16 f32 with
      TF32 off, B = 64 bf16) in conv_mode "kernel" and, as the yardstick,
      "library" (cuDNN), taken in turns; ms/step, steps/s and MFU against the
@@ -138,6 +165,28 @@ def build_kernels(kernels):
     for k in kernels:
         k.lib
     return logs
+
+
+def ptxas_usage(log):
+    """'kernel<template args>: N registers, S bytes smem[, spills]' for each
+    entry function in nvcc's -Xptxas -v output."""
+    import re
+
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"entry function '\w*?_cu_[0-9a-f]{8}(\d+)(\w*)'", ln)
+        if m:
+            n, rest = int(m.group(1)), m.group(2)
+            args = re.match(r"I(\w*?)EE", rest[n:])
+            name = rest[:n] + ("<%s>" % ",".join(re.findall(
+                r"L[a-z](\d+)", args.group(1))) if args else "")
+        elif "spill" in ln and " 0 bytes spill stores" not in ln:
+            spill = ", " + ln.strip()
+        elif "Used" in ln and name:
+            used = ln.split("Used", 1)[1].replace(", used 0 barriers", "")
+            out.append("%s: %s%s" % (name, used.strip(), spill))
+            name, spill = None, ""
+    return out
 
 
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores,
@@ -392,12 +441,24 @@ def time_steps(torch, step, state, batch, gen, n):
 def profile_steps(torch, step, state, batch, gen, n, ms_per_step):
     """Device time by kernel name over n steps (torch.profiler), per step,
     and the device's busy share against the unprofiled step time."""
+    box = [state]
+
+    def run():
+        box[0], _ = step(box[0], batch, gen)
+
+    return box[0], profile_device(torch, run, n, ms_per_step)
+
+
+def profile_device(torch, fn, n, ms_per_call):
+    """Device time by kernel or copy name over n calls of fn
+    (torch.profiler), per call, and the device's busy share against the
+    unprofiled call time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            state, _ = step(state, batch, gen)
+            fn()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -412,10 +473,12 @@ def profile_steps(torch, step, state, batch, gen, n, ms_per_step):
             rows.append((dev_us / 1e3 / n, e.count / n, e.key[:70]))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    return state, {"device_ms_per_step": round(busy, 3),
-                   "busy_share": round(busy / ms_per_step, 4),
-                   "top": [[round(a, 3), round(c, 1), k]
-                           for a, c, k in rows[:12]]}
+    copies = [r for r in rows if r[2].startswith("Memcpy")]
+    return {"device_ms_per_step": round(busy, 3),
+            "busy_share": round(busy / ms_per_call, 4),
+            "launches": round(sum(r[1] for r in rows), 1),
+            "copies": [[round(a, 3), round(c, 1), k] for a, c, k in copies],
+            "top": [[round(a, 3), round(c, 1), k] for a, c, k in rows[:12]]}
 
 
 def train_main_path(torch, pkg, hp, dev, seed, card):
@@ -605,14 +668,51 @@ def b1_bound_ms(torch, pkg, hp, dev, seed, B=32, Tk=96, steps=32):
     return bound(flops, nbytes, "float32")
 
 
-def b2_bound_ms(B=32, n=400, fft=1024, hop=256, n_iters=16):
-    """Least time for check_b2's retrieval: two DFT GEMMs per iteration and
-    a last synthesis, (B n) x 2F x fft each, at the bf16 tensor-core rate;
-    bytes: the magnitudes read once and the waveform written once."""
+def b2_bound_ms(B=32, n=400, fft=1024, hop=256, n_iters=16, planes=0):
+    """Least time for a Griffin-Lim retrieval: two DFT GEMMs per iteration
+    and a last synthesis, (B n) x 2F x fft each, at the bf16 tensor-core
+    rate; bytes: the magnitudes read once, the waveform written once, and
+    `planes` more (B, n, F) f32 arrays (a given start, a returned
+    spectrum) read or written once."""
     F = fft // 2 + 1
     flops = (2 * n_iters + 1) * 2.0 * B * n * 2 * F * fft
-    nbytes = 4 * (B * n * F + B * (n + fft // hop - 1) * hop)
+    nbytes = 4 * ((1 + planes) * B * n * F + B * (n + fft // hop - 1) * hop)
     return bound(flops, nbytes, "bfloat16")
+
+
+FFT, HOP = 1024, 256
+
+
+def tone_mags(torch, dev, seed, B, n):
+    """Magnitudes of real signals: harmonic tones with vibrato plus noise,
+    (B, n, 513) at fft 1024, hop 256 (lws framing)."""
+    from deepvoice3_pytorch_tpu_torch.dsp import stft as dsp
+
+    win = dsp.lws_hann_window(FFT, HOP)
+    g = torch.Generator().manual_seed(seed)
+    t = torch.arange(n * HOP, dtype=torch.float64) / 22050.0
+    f0 = 100.0 + 150.0 * torch.rand(B, 1, generator=g, dtype=torch.float64)
+    vib = 1.0 + 0.02 * torch.sin(2 * np.pi * 5.0 * t)[None, :]
+    phase = 2 * np.pi * torch.cumsum(f0 * vib, dim=1) / 22050.0
+    x = sum(torch.sin(h * phase) / h for h in range(1, 8))
+    x = x + 0.01 * torch.randn(B, n * HOP, generator=g, dtype=torch.float64)
+    x = x.float().to(dev)
+    return torch.abs(dsp.stft(dsp.lws_pad(x, FFT, HOP), FFT, HOP,
+                              torch.from_numpy(win).to(dev)))[:, :n] \
+        .contiguous()
+
+
+def spectral_convergence(torch, wav, S):
+    """||  |STFT(wav)| - S || / || S || over S's frames (lws framing): the
+    phase-retrieval quality of a Griffin-Lim output against the magnitudes
+    it was given."""
+    from deepvoice3_pytorch_tpu_torch.dsp import stft as dsp
+
+    win = torch.from_numpy(dsp.lws_hann_window(FFT, HOP)).to(wav.device)
+    n = S.shape[-2]
+    M = torch.abs(dsp.stft(dsp.lws_pad(wav, FFT, HOP), FFT, HOP, win))
+    return float(torch.linalg.norm(M[..., :n, :] - S)
+                 / torch.linalg.norm(S))
 
 
 def check_b2(torch, pkg, dev, seed):
@@ -620,19 +720,9 @@ def check_b2(torch, pkg, dev, seed):
     from deepvoice3_pytorch_tpu_torch.dsp import gl_cuda
     from deepvoice3_pytorch_tpu_torch.dsp import stft as dsp
 
-    B, n, fft, hop = 32, 400, 1024, 256
+    B, n, fft, hop = 32, 400, FFT, HOP
     win = dsp.lws_hann_window(fft, hop)
-    g = torch.Generator().manual_seed(seed + 2)
-    # magnitudes of real signals: harmonic tones with vibrato plus noise
-    t = torch.arange(n * hop, dtype=torch.float64) / 22050.0
-    f0 = 100.0 + 150.0 * torch.rand(B, 1, generator=g, dtype=torch.float64)
-    vib = 1.0 + 0.02 * torch.sin(2 * np.pi * 5.0 * t)[None, :]
-    phase = 2 * np.pi * torch.cumsum(f0 * vib, dim=1) / 22050.0
-    x = sum(torch.sin(h * phase) / h for h in range(1, 8))
-    x = x + 0.01 * torch.randn(B, n * hop, generator=g, dtype=torch.float64)
-    x = x.float().to(dev)
-    S = torch.abs(dsp.stft(dsp.lws_pad(x, fft, hop), fft, hop,
-                           torch.from_numpy(win).to(dev)))[:, :n].contiguous()
+    S = tone_mags(torch, dev, seed + 2, B, n)
     mats = gl_cuda.gl_mats(fft, win, dev)
 
     def kernel():
@@ -645,35 +735,132 @@ def check_b2(torch, pkg, dev, seed):
                                          momentum=0.9, phase_init="spsi",
                                          mats=mats)[:, :n * hop]
 
-    def sc(wav):
-        M = torch.abs(dsp.stft(dsp.lws_pad(wav, fft, hop), fft, hop,
-                               torch.from_numpy(win).to(dev)))[:, :n]
-        return float(torch.linalg.norm(M - S) / torch.linalg.norm(S))
-
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     err = maxabs(got, want)
     rel = err / float(want.abs().max())
     ms = cuda_ms(kernel, torch)
     plain_ms = cuda_ms(plain, torch)
-    return err, rel, sc(got), sc(want), ms, plain_ms
+    return (err, rel, spectral_convergence(torch, got, S),
+            spectral_convergence(torch, want, S), ms, plain_ms)
 
 
-def check_small_reference(torch, pkg, dev):
-    """A tiny model through tts_batch on the GPU (kernels) and on the CPU
-    (plain versions)."""
+def check_b2_stream(torch, dev, seed, B=8, n=152, n_pinned=16, n_iters=32):
+    """B2's streaming modes, kernel vs plain, at a stream window's shape
+    (16 context + 128 emitted + 8 lookahead frames): a given start (the
+    magnitudes on their SPSI phase), 16 pinned frames, the retrieved
+    spectrum returned. Also whether the pinned frames of the returned
+    spectrum equal the start's exactly, for the kernel and for the plain
+    version (each against its own spectrum after 0 iterations)."""
+    from deepvoice3_pytorch_tpu_torch.dsp import gl_cuda
+    from deepvoice3_pytorch_tpu_torch.dsp import stft as dsp
+
+    win = dsp.lws_hann_window(FFT, HOP)
+    S = tone_mags(torch, dev, seed + 3, B, n)
+    phi = dsp.spsi_phase(S, FFT, HOP)
+    kw = dict(momentum=0.9, mats=gl_cuda.gl_mats(FFT, win, dev),
+              init_spec=(S * torch.cos(phi), S * torch.sin(phi)),
+              n_pinned=n_pinned, return_spec=True)
+
+    def kernel(iters=n_iters):
+        return gl_cuda.griffin_lim(S, FFT, HOP, win, n_iters=iters, **kw)
+
+    def plain(iters=n_iters):
+        wav, spec = gl_cuda.griffin_lim_plain(S, FFT, HOP, win,
+                                              n_iters=iters, **kw)
+        return wav[:, :n * HOP], spec
+
+    (got, spec), (want, want_spec) = kernel(), plain()
+    starts = (kernel(0)[1], plain(0)[1])
+    torch.cuda.synchronize()
+    pinned_exact = [all(torch.equal(a[:, :n_pinned], b[:, :n_pinned])
+                        for a, b in zip(sp, st))
+                    for sp, st in zip((spec, want_spec), starts)]
+    err = maxabs(got, want)
+    return {"err": err, "rel": err / float(want.abs().max()),
+            "sc": spectral_convergence(torch, got, S),
+            "sc_plain": spectral_convergence(torch, want, S),
+            "pinned_exact": pinned_exact,
+            "ms": cuda_ms(kernel, torch), "plain_ms": cuda_ms(plain, torch),
+            "bound": b2_bound_ms(B, n, FFT, HOP, n_iters, planes=4)}
+
+
+def check_p(torch, pkg, dev, seed, repo, B=32, n=600, n_iters=16):
+    """The probe kernel P (B2 with the windows applied in f32 outside the
+    bf16 DFT matrices) at the probe's shape, kernel vs plain; then its own
+    path, what the probe measured: spectral convergence on the golden
+    fixture (kernel and plain), the per-iteration slope from the 4- and
+    16-iteration times, and the time of the folded B2 at the same shape.
+    Returns (row of numbers, P launches on its own path)."""
+    from deepvoice3_pytorch_tpu_torch.dsp import gl_cuda
+    from deepvoice3_pytorch_tpu_torch.dsp import stft as dsp
+
+    win = dsp.lws_hann_window(FFT, HOP)
+    S = tone_mags(torch, dev, seed + 4, B, n)
+    unfolded = gl_cuda.gl_mats(FFT, win, dev, fold=False)
+    folded_mats = gl_cuda.gl_mats(FFT, win, dev)
+
+    def kernel(iters=n_iters, S=S):
+        return gl_cuda.griffin_lim(S, FFT, HOP, win, n_iters=iters,
+                                   momentum=0.9, mats=unfolded,
+                                   fold_windows=False)
+
+    def plain(S=S):
+        return gl_cuda.griffin_lim_plain(
+            S, FFT, HOP, win, n_iters=n_iters, momentum=0.9, mats=unfolded,
+            fold_windows=False)[:, :S.shape[1] * HOP]
+
+    def folded():
+        return gl_cuda.griffin_lim(S, FFT, HOP, win, n_iters=n_iters,
+                                   momentum=0.9, mats=folded_mats)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = maxabs(got, want)
+    row = {"err": err, "rel": err / float(want.abs().max()),
+           "sc": spectral_convergence(torch, got, S),
+           "sc_plain": spectral_convergence(torch, want, S),
+           "plain_ms": cuda_ms(plain, torch),
+           "bound": b2_bound_ms(B, n, FFT, HOP, n_iters)}
+
+    gl_cuda.KERNEL.reset_counts()
+    lin = np.load(os.path.join(repo, "tests", "data",
+                               "dsp_golden_linear.npy"))       # (F, n)
+    ap = pkg["AudioProcessor"](ljspeech_hparams(pkg["hparams"], repo))
+    Sg = ap._denorm_pow(torch.from_numpy(lin.T.copy())[None].to(dev))
+    row["sc_golden"] = spectral_convergence(torch, kernel(S=Sg), Sg)
+    row["ms_4"] = cuda_ms(lambda: kernel(4), torch)
+    row["ms"] = cuda_ms(kernel, torch)
+    launches = gl_cuda.KERNEL.by_entry.get("unfolded", 0)
+    row["sc_golden_plain"] = spectral_convergence(torch, plain(S=Sg), Sg)
+    row["us_per_item_iter"] = ((row["ms"] - row["ms_4"]) * 1e3
+                               / (n_iters - 4) / B)
+    row["folded_ms"] = cuda_ms(folded, torch)
+    return row, launches
+
+
+def tiny_model(pkg, seed=7):
+    """A tiny model with the LJSpeech structure on the CPU, and an audio
+    configuration at fft 128, hop 32."""
     from deepvoice3_pytorch_tpu_torch import builder
+    import torch
 
     cfg = builder.deepvoice3(
         n_vocab=pkg["en"].n_vocab, embed_dim=32, mel_dim=16, linear_dim=65,
         r=1, downsample_step=4, kernel_size=3, encoder_channels=32,
         decoder_channels=32, converter_channels=32, use_memory_mask=True,
         key_projection=True, value_projection=True, max_positions=64)
-    params = builder.model_init(cfg, torch.Generator().manual_seed(7),
+    params = builder.model_init(cfg, torch.Generator().manual_seed(seed),
                                 device="cpu")
     hp = pkg["hparams"].default_hparams()
     hp.fft_size, hp.hop_size = 128, 32
-    ap = pkg["AudioProcessor"](hp)
+    return cfg, params, pkg["AudioProcessor"](hp)
+
+
+def check_small_reference(torch, pkg, dev):
+    """A tiny model through tts_batch on the GPU (kernels) and on the CPU
+    (plain versions)."""
+    cfg, params, ap = tiny_model(pkg)
     texts = SENTENCES[:3]
     ref = pkg["synthesis"].tts_batch(params, cfg, ap, pkg["en"], texts,
                                      max_decoder_steps=40)
@@ -729,6 +916,237 @@ def stage_times(torch, synthesis, params, cfg, ap, frontend, texts):
     return out
 
 
+# ---------------------------------------------------------------------------
+# streaming synthesis and the HTTP engine
+# ---------------------------------------------------------------------------
+
+
+def check_small_stream(torch, pkg, dev):
+    """The tiny model's tts_stream on the GPU (kernels) and on the CPU
+    (plain versions), emit_linear on."""
+    cfg, params, ap = tiny_model(pkg)
+    kw = dict(max_decoder_steps=40, emit_linear=True)
+    texts = SENTENCES[:3]
+    stream = pkg["streaming"].tts_stream
+    ref = list(stream(params, cfg, ap, pkg["en"], texts, **kw))
+    got = list(stream(params.to(dev), cfg, ap, pkg["en"], texts, **kw))
+    worst = {"steps": int((got[-1]["decoded_steps"]
+                           != ref[-1]["decoded_steps"]).sum()),
+             "chunks": [c["audio"].shape[1] for c in got]
+             != [c["audio"].shape[1] for c in ref],
+             "linear": 0.0, "wave_rel": 0.0}
+    if not worst["chunks"]:
+        for g, r in zip(got, ref):
+            worst["linear"] = max(worst["linear"], float(
+                np.abs(g["linear"] - r["linear"]).max()))
+            worst["wave_rel"] = max(worst["wave_rel"], float(
+                np.abs(g["audio"] - r["audio"]).max()
+                / max(np.abs(r["audio"]).max(), 1e-9)))
+    return worst
+
+
+def run_stream(torch, streaming, params, cfg, ap, en, texts):
+    """One whole tts_stream (LJSpeech schedule: first chunk 16, then 32 per
+    launch, up to 200 steps). Returns (chunks, host seconds to the first
+    chunk, host seconds to the end)."""
+    torch.cuda.synchronize()
+    t = time.time()
+    gen = streaming.tts_stream(params, cfg, ap, en, texts,
+                               max_decoder_steps=200, first_chunk=16)
+    chunks = [next(gen)]
+    t_first = time.time() - t
+    chunks += list(gen)
+    return chunks, t_first, time.time() - t
+
+
+def stream_stages(torch, streaming, synthesis, params, cfg, ap, en, text):
+    """Host-clock milliseconds of the stages of a stream's first chunk at
+    B = 1, each ended by a device synchronise: what tts_stream does up to
+    its first yield, one stage at a time."""
+    out = {}
+    t = [time.time()]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        t.append(time.time())
+        out[name] = round((t[-1] - t[-2]) * 1e3, 3)
+
+    dev = next(iter(params.parameters())).device
+    with torch.inference_mode():
+        x, pos, lengths = (torch.from_numpy(a).to(dev) for a in
+                           synthesis._prepare_batch(en, [text], 0.0, 8))
+        mark("frontend")
+        dec, carry, outputs = streaming.prepare_decode(params, cfg, x, pos,
+                                                       lengths, 200)
+        mark("encoder+decoder_plan")
+        o, _, d, s = streaming.launch_chunk(dec, carry, outputs, 0, 16)
+        mark("decode_16_steps")
+        pin = s if cfg.use_decoder_state_for_postnet_input else o
+        em = streaming.StreamEmitter(params, cfg, ap)
+        em.mel_hist, em.M = pin, pin.shape[1]
+        lin = em.conv_emit(em.M - em.ctx_r)
+        mark("converter_window")
+        token = em.vocoder.push_async(lin)
+        mark("griffin_lim_window")
+        d.cpu()
+        mark("fetch_done_flags")
+        audio = em.vocoder.finish(token)
+        mark("fetch_audio+crossfade+iir")
+        # the same first window once more under the profiler: its device
+        # time against the host time of the stage above
+        prof = profile_device(
+            torch, lambda: streaming.StreamingVocoder(ap).push_async(lin), 3,
+            out["griffin_lim_window"])
+    out["griffin_lim_window_device_ms"] = prof["device_ms_per_step"]
+    out["griffin_lim_window_launches"] = prof["launches"]
+    out["first_chunk_samples"] = int(audio.shape[1])
+    out["gl_window_frames"] = int(lin.shape[1])
+    return out
+
+
+def stream_main_path(torch, pkg, params, cfg, ap):
+    """The streaming main path at the LJSpeech preset, measured as bench.py
+    measures it, at B = 1 and B = 8 (the first B sentences): after a
+    warm-up, five streams; of the one with the least time to first audio
+    (the first next() of the generator), ttfa_ms, the whole stream's wall
+    time and its RTF (decoded-length audio over that wall time). Returns
+    (rows, launches of B1, B2's stream modes and B3 in those runs)."""
+    from deepvoice3_pytorch_tpu_torch.dsp import gl_cuda
+    from deepvoice3_pytorch_tpu_torch.ops import conv_cuda
+    from deepvoice3_pytorch_tpu_torch.ops import fused_decode as fd
+
+    streaming, en = pkg["streaming"], pkg["en"]
+    args = (torch, streaming, params, cfg, ap, en)
+    for k in (fd.KERNEL, gl_cuda.KERNEL, conv_cuda.KERNEL):
+        k.reset_counts()
+    rows = {}
+    for B in (1, 8):
+        run_stream(*args, SENTENCES[:B])               # warm-up
+        runs = [run_stream(*args, SENTENCES[:B]) for _ in range(5)]
+        chunks, t_first, wall = min(runs, key=lambda r: r[1])
+        dec = chunks[-1]["decoded_steps"]
+        audio = np.concatenate([c["audio"] for c in chunks], axis=1)
+        if not chunks[-1]["final"] or not np.isfinite(audio).all() or \
+                audio.shape[1] < streaming.decoded_samples(cfg, ap,
+                                                           dec.max()):
+            fail("stream B=%d: bad audio %s for decoded steps %s"
+                 % (B, audio.shape, dec.tolist()))
+        audio_s = streaming.decoded_samples(cfg, ap, dec.sum()) \
+            / ap.sample_rate
+        rows["B%d" % B] = {
+            "ttfa_ms": t_first * 1e3,
+            "ttfa_ms_all": [round(r[1] * 1e3, 3) for r in runs],
+            "stream_total_ms": wall * 1e3,
+            "first_chunk_audio_ms": chunks[0]["audio"].shape[1]
+            / ap.sample_rate * 1e3,
+            "audio_s": audio_s, "rtf": audio_s / wall,
+            "chunks": len(chunks), "decoded_steps": dec.tolist()}
+    launches = {"fused_decode": fd.KERNEL.launches,
+                "griffin_lim_stream": sum(
+                    gl_cuda.KERNEL.by_entry.get(m, 0)
+                    for m in ("init", "pinned")),
+                "griffin_lim_by_mode": dict(gl_cuda.KERNEL.by_entry),
+                "conv_taps": conv_cuda.KERNEL.launches}
+    res = pkg["synthesis"].tts_batch(params, cfg, ap, en, SENTENCES[:8],
+                                     max_decoder_steps=200)
+    rows["batch_decoded_steps"] = [r["num_decoder_steps"] for r in res]
+    rows["stages"] = stream_stages(torch, streaming, pkg["synthesis"],
+                                   params, cfg, ap, en, SENTENCES[0])
+    rows["profile_B1"] = profile_device(
+        torch, lambda: run_stream(*args, SENTENCES[:1]), 3,
+        rows["B1"]["stream_total_ms"])
+    return rows, launches
+
+
+def serve_main_path(torch, pkg, params, cfg, ap):
+    """TTSEngine + make_handler on a ThreadingHTTPServer at 127.0.0.1:0:
+    /healthz, three /tts requests (client-side time to the first PCM
+    bytes), one 400, /stats. Returns (rows, launches of B1, B2's stream
+    modes and B3 in the requests, problems found)."""
+    import struct
+    import threading
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from deepvoice3_pytorch_tpu_torch.dsp import gl_cuda
+    from deepvoice3_pytorch_tpu_torch.ops import conv_cuda
+    from deepvoice3_pytorch_tpu_torch.ops import fused_decode as fd
+
+    serve, streaming, en = pkg["serve"], pkg["streaming"], pkg["en"]
+    engine = serve.TTSEngine(params, cfg, ap, en, max_decoder_steps=200)
+    engine.warmup()
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(engine))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    problems, rows = [], {"requests": []}
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            if r.read() != b"ok":
+                problems.append("/healthz")
+        for k in (fd.KERNEL, gl_cuda.KERNEL, conv_cuda.KERNEL):
+            k.reset_counts()
+        texts = SENTENCES[:3]
+        for text in texts:
+            url = base + "/tts?" + urllib.parse.urlencode({"text": text})
+            t = time.time()
+            with urllib.request.urlopen(url, timeout=300) as r:
+                head = r.read(46)          # WAV header + the first sample
+                t_first = time.time() - t
+                body = head + r.read()
+            pcm = np.frombuffer(body[44:], "<i2")
+            rows["requests"].append({"ttfa_ms": t_first * 1e3,
+                                     "wall_ms": (time.time() - t) * 1e3,
+                                     "samples": int(len(pcm))})
+            if body[:4] != b"RIFF" or body[8:12] != b"WAVE" or \
+                    struct.unpack("<I", body[24:28])[0] != ap.sample_rate:
+                problems.append("bad WAV header for %r" % text)
+        launches = {"fused_decode": fd.KERNEL.launches,
+                    "griffin_lim_stream": sum(
+                        gl_cuda.KERNEL.by_entry.get(m, 0)
+                        for m in ("init", "pinned")),
+                    "conv_taps": conv_cuda.KERNEL.launches}
+        for text, req in zip(texts, rows["requests"]):
+            final = list(streaming.tts_stream(params, cfg, ap, en, [text],
+                                              max_decoder_steps=200))[-1]
+            want = streaming.decoded_samples(cfg, ap,
+                                             final["decoded_steps"][0])
+            req["decoded_samples"] = want
+            if req["samples"] != want:
+                problems.append("PCM length %d != decoded_samples %d"
+                                % (req["samples"], want))
+        try:
+            urllib.request.urlopen(base + "/tts", timeout=60)
+            problems.append("no 400 for /tts without text")
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                problems.append("/tts without text gave %d" % e.code)
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            rows["stats"] = json.loads(r.read())
+        # why the engine keeps one producer thread: the same stream's time
+        # to first audio in fresh threads, beside the calling thread's
+        rows["thread_ttfa_ms"] = []
+        for _ in range(3):
+            box = []
+            th = threading.Thread(target=lambda: box.append(run_stream(
+                torch, streaming, params, cfg, ap, en, texts[:1])[1]))
+            th.start()
+            th.join()
+            rows["thread_ttfa_ms"].append(box[0] * 1e3)
+        rows["caller_ttfa_ms"] = [
+            run_stream(torch, streaming, params, cfg, ap, en,
+                       texts[:1])[1] * 1e3 for _ in range(3)]
+        if rows["stats"]["requests_total"] != 3 or \
+                rows["stats"]["requests_failed"]:
+            problems.append("/stats: %s" % rows["stats"])
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+    return rows, launches, problems
+
+
 def main():
     import argparse
 
@@ -748,7 +1166,8 @@ def main():
         import deepvoice3_pytorch_tpu_torch  # noqa: F401
     except ImportError as e:
         fail("the port package is not next to this script: %s" % e)
-    from deepvoice3_pytorch_tpu_torch import hparams, model_builder, synthesis
+    from deepvoice3_pytorch_tpu_torch import hparams, model_builder, serve
+    from deepvoice3_pytorch_tpu_torch import streaming, synthesis
     from deepvoice3_pytorch_tpu_torch.dsp import gl_cuda
     from deepvoice3_pytorch_tpu_torch.dsp.audio import AudioProcessor
     from deepvoice3_pytorch_tpu_torch.frontend import en
@@ -762,7 +1181,8 @@ def main():
            for m in sys.modules):
         fail("jax or the JAX package was imported")
     pkg = dict(hparams=hparams, model_builder=model_builder,
-               synthesis=synthesis, AudioProcessor=AudioProcessor, en=en)
+               synthesis=synthesis, streaming=streaming, serve=serve,
+               AudioProcessor=AudioProcessor, en=en)
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -778,9 +1198,7 @@ def main():
     t0 = time.time()
     logs = build_kernels((fd.KERNEL, gl_cuda.KERNEL, conv_cuda.KERNEL))
     for source, log in logs.items():
-        usage = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        phase("build", "%s: %s" % (source, "; ".join(usage[:6])))
+        phase("build", "%s: %s" % (source, "; ".join(ptxas_usage(log))))
     phase("build", "kernels built and loaded in %.1f s" % (time.time() - t0))
 
     hp = ljspeech_hparams(hparams, repo)
@@ -830,6 +1248,38 @@ def main():
               "%.3f ms" % (b2_err, b2_rel, sc_k, sc_p, b2_ms, b2_plain_ms))
         ok &= b2_ok
 
+        b2s = check_b2_stream(torch, dev, seed)
+        b2s_ok = (b2s["rel"] < 0.12 and b2s["sc"] <= 1.05 * b2s["sc_plain"]
+                  and all(b2s["pinned_exact"]))
+        phase("B2_stream", "griffin-lim stream modes kernel vs plain, "
+              "(8, 152, 513) x 32, given start, 16 pinned frames, spectrum "
+              "returned: max abs err %.3g (%.4f of peak, bar 0.12), "
+              "spectral convergence kernel %.4f plain %.4f (bar 1.05x), "
+              "pinned frames equal to the start (kernel, plain) %s; kernel "
+              "%.3f ms, plain %.3f ms, bound %.4f ms (%s) (%s)" % (
+                  b2s["err"], b2s["rel"], b2s["sc"], b2s["sc_plain"],
+                  b2s["pinned_exact"], b2s["ms"], b2s["plain_ms"],
+                  b2s["bound"][0], b2s["bound"][1], card))
+        ok &= b2s_ok
+
+        p_row, p_launches = check_p(torch, pkg, dev, seed, repo)
+        p_ok = (p_row["rel"] < 0.12 and p_row["sc"] <= 1.05 * p_row["sc_plain"]
+                and p_row["sc_golden"] <= 1.05 * p_row["sc_golden_plain"]
+                and p_launches > 0)
+        phase("P", "unfolded-window griffin-lim kernel vs plain, (32, 600, "
+              "513) x 16: max abs err %.3g (%.4f of peak, bar 0.12), "
+              "spectral convergence kernel %.4f plain %.4f; golden fixture "
+              "kernel %.4f plain %.4f (bars 1.05x); kernel %.3f ms (4 "
+              "iterations %.3f ms, %.2f us per item-iteration), folded B2 "
+              "%.3f ms, plain %.3f ms, bound %.4f ms (%s); %d launches on "
+              "its own path (%s)" % (
+                  p_row["err"], p_row["rel"], p_row["sc"], p_row["sc_plain"],
+                  p_row["sc_golden"], p_row["sc_golden_plain"], p_row["ms"],
+                  p_row["ms_4"], p_row["us_per_item_iter"],
+                  p_row["folded_ms"], p_row["plain_ms"], p_row["bound"][0],
+                  p_row["bound"][1], p_launches, card))
+        ok &= p_ok
+
         worst = check_small_reference(torch, pkg, dev)
         ref_ok = (worst["steps"] == 0 and max(worst["mel"], worst["linear"],
                                               worst["alignment"]) <= 1e-4
@@ -838,6 +1288,15 @@ def main():
               "(bars: steps exact, features 1e-4, waveform 0.12 of peak)"
               % json.dumps(worst))
         ok &= ref_ok
+        worst_s = check_small_stream(torch, pkg, dev)
+        stream_ref_ok = (worst_s["steps"] == 0 and not worst_s["chunks"]
+                         and worst_s["linear"] <= 1e-4
+                         and worst_s["wave_rel"] < 0.12)
+        phase("stream_reference", "tiny model tts_stream, GPU kernels vs "
+              "CPU plain: %s (bars: decoded steps and chunk sizes exact, "
+              "linear frames 1e-4, waveform 0.12 of peak)"
+              % json.dumps(worst_s))
+        ok &= stream_ref_ok
         if not ok:
             fail("a kernel or the reference comparison disagreed")
 
@@ -874,13 +1333,57 @@ def main():
                       len(texts), wall * 1e3, audio_s, audio_s / wall,
                       min(steps), max(steps), card))
         launches = {"fused_decode": fd.KERNEL.launches,
-                    "griffin_lim": gl_cuda.KERNEL.launches}
+                    "griffin_lim": gl_cuda.KERNEL.by_entry.get("batch", 0)}
         phase("tts_batch", "kernel launches on the main path: %s"
               % json.dumps(launches))
         if min(launches.values()) <= 0 or conv_cuda.KERNEL.launches:
             fail("a kernel of the main path was not launched, or B3 was")
         phase("stages", "B=32 wall time by stage: %s" % json.dumps(
             stage_times(torch, synthesis, params, cfg, ap, en, SENTENCES)))
+
+        st_rows, st_launches = stream_main_path(torch, pkg, params, cfg, ap)
+        for B in (1, 8):
+            r = st_rows["B%d" % B]
+            phase("stream", "B=%d: ttfa_ms %.3f (best of 5: %s), stream "
+                  "%.3f ms for %.3f s of decoded audio, RTF %.2fx, first "
+                  "chunk %.1f ms of audio, %d chunks, decoded steps %s (%s)"
+                  % (B, r["ttfa_ms"], r["ttfa_ms_all"], r["stream_total_ms"],
+                     r["audio_s"], r["rtf"], r["first_chunk_audio_ms"],
+                     r["chunks"], r["decoded_steps"], card))
+        phase("stream", "first chunk at B=1 by stage (host ms, synchronised "
+              "after each): %s" % json.dumps(st_rows["stages"]))
+        prof = st_rows["profile_B1"]
+        phase("stream_profile", "one B=1 stream: device %.2f ms of %.2f ms "
+              "wall (busy %.3f); copies [ms, count, kind] %s; top device "
+              "time [ms, launches, name]: %s" % (
+                  prof["device_ms_per_step"],
+                  st_rows["B1"]["stream_total_ms"], prof["busy_share"],
+                  json.dumps(prof["copies"]), json.dumps(prof["top"][:10])))
+        phase("stream", "kernel launches in the stream runs: %s; decoded "
+              "steps B=8 stream %s, tts_batch %s" % (
+                  json.dumps(st_launches), st_rows["B8"]["decoded_steps"],
+                  st_rows["batch_decoded_steps"]))
+        if st_launches["fused_decode"] <= 0 or \
+                st_launches["griffin_lim_by_mode"].get("pinned", 0) <= 0 \
+                or st_launches["conv_taps"]:
+            fail("the stream did not launch B1 and B2's pinned mode, or it "
+                 "launched B3")
+        if st_rows["B8"]["decoded_steps"] != st_rows["batch_decoded_steps"]:
+            fail("the stream's decoded steps differ from tts_batch's")
+
+        sv_rows, sv_launches, problems = serve_main_path(torch, pkg, params,
+                                                         cfg, ap)
+        phase("serve", "3 requests: %s; /stats %s; launches %s (%s)" % (
+            json.dumps(sv_rows["requests"]), json.dumps(sv_rows["stats"]),
+            json.dumps(sv_launches), card))
+        phase("serve", "tts_stream B=1 ttfa_ms in a fresh thread each %s, "
+              "in the calling thread %s" % (
+                  [round(v, 3) for v in sv_rows["thread_ttfa_ms"]],
+                  [round(v, 3) for v in sv_rows["caller_ttfa_ms"]]))
+        if problems or sv_launches["fused_decode"] <= 0 or \
+                sv_launches["griffin_lim_stream"] <= 0 or \
+                sv_launches["conv_taps"]:
+            fail("serve: %s, launches %s" % (problems, sv_launches))
 
         b3_launches, train_rows = train_main_path(torch, pkg, hp, dev, seed,
                                                   card)
@@ -893,8 +1396,9 @@ def main():
                         exist_ok=True)
             with open(json_out, "w") as f:
                 json.dump({"card": card, "train": train_rows,
-                           "b3": {"%d_%s" % k: v for k, v in b3.items()}},
-                          f, indent=1, default=str)
+                           "b3": {"%d_%s" % k: v for k, v in b3.items()},
+                           "b2_stream": b2s, "p": p_row, "stream": st_rows,
+                           "serve": sv_rows}, f, indent=1, default=str)
 
     b1_bound = b1_bound_ms(torch, pkg, hp, dev, seed)
     b2_bound = b2_bound_ms()
@@ -913,6 +1417,20 @@ def main():
          "launches": launches["griffin_lim"], "max_abs_err": b2_err,
          "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound[0],
          "bound_by": b2_bound[1], "library_ms": None},
+        {"name": "griffin_lim_stream", "route": "cuda",
+         "source": "deepvoice3_pytorch_tpu_torch/csrc/griffin_lim.cu",
+         "replaces": "deepvoice3_pytorch_tpu/dsp/gl_pallas.py:146",
+         "launches": st_launches["griffin_lim_stream"],
+         "max_abs_err": b2s["err"], "ms": b2s["ms"],
+         "plain_ms": b2s["plain_ms"], "bound_ms": b2s["bound"][0],
+         "bound_by": b2s["bound"][1], "library_ms": None},
+        {"name": "griffin_lim_unfolded", "route": "cuda",
+         "source": "deepvoice3_pytorch_tpu_torch/csrc/griffin_lim.cu",
+         "replaces": "tools/gl_pallas2_probe.py:53",
+         "launches": p_launches, "max_abs_err": p_row["err"],
+         "ms": p_row["ms"], "plain_ms": p_row["plain_ms"],
+         "bound_ms": p_row["bound"][0], "bound_by": p_row["bound"][1],
+         "library_ms": None},
     ] + [
         {"name": entry, "route": "cuda",
          "source": "deepvoice3_pytorch_tpu_torch/csrc/conv_taps.cu",

@@ -196,3 +196,16 @@ def inv_preemphasis(x, coef=0.97):
         a[..., d:] = a[..., d:] * a[..., :-d]
         d *= 2
     return y
+
+
+def inv_preemphasis_carry(x, coef, y_prev):
+    """Streaming inv_preemphasis: continue the IIR from the carry y_prev (the
+    last output sample of the previous chunk, shape x.shape[:-1]), for
+    callers that keep the signal on the device. The chunk's solution is its
+    zero-state response plus the zero-input response y_prev * coef**(t+1).
+    Returns (y, new carry)."""
+    T = x.shape[-1]
+    y = inv_preemphasis(x, coef)
+    decay = coef ** torch.arange(1, T + 1, dtype=x.dtype, device=x.device)
+    y = y + y_prev[..., None] * decay
+    return y, y[..., -1]

@@ -1,16 +1,18 @@
 # coding: utf-8
-"""Eager autoregressive decode loop, counterpart of
+"""The done rule of the autoregressive decode, counterpart of
 deepvoice3_pytorch_tpu/models/decode.py (`decode_scan` / `decode_while`).
+The loop itself is ops/fused_decode's host loop, over the kernel on the card
+and over `PlainDecoder` (the eager step) on the CPU.
 
 Done rule (reference deepvoice3.py:469-473): frame t is always emitted; a
 sample is finished once done > 0.5 with t+1 > min_decoder_steps. With
 early_exit the loop checks the latch every `chunk` frames and stops after
 the first chunk in which every sample has finished, leaving the later frames
-zero (the JAX while loop is chunk=1; the fused kernel's host loop uses its
-launch size). Without early_exit it runs every chunk, as the scan does.
+zero (the JAX while loop is chunk=1). Without early_exit it runs every
+chunk, as the scan does.
 """
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -41,38 +43,3 @@ def chunk_latch(done_chunk, t0, min_steps):
     gstep = t0 + torch.arange(1, done_chunk.shape[1] + 1,
                               device=done_chunk.device)
     return ((done_chunk > 0.5) & (gstep[None, :] > min_steps)).any(dim=1)
-
-
-def decode_loop(step_fn: Callable, state, initial_input, max_steps: int,
-                min_steps: int, *, early_exit=True, chunk=1):
-    """Free-running decode.
-
-    step_fn(state, x_t) -> (state, (output, align, done, dec_state)), with
-    x_t the previous output frame (B, in). Returns (DecodeLoopOut with time
-    buffers of length max_steps, the state after the last computed frame)."""
-    chunk = min(chunk, max_steps)
-    n_chunks = -(-max_steps // chunk)
-    total = n_chunks * chunk
-    prev = initial_input
-    bufs = None
-    latch = torch.zeros(prev.shape[0], dtype=torch.bool, device=prev.device)
-    c = 0
-    while c < n_chunks and not (early_exit and bool(latch.all())):
-        for s in range(chunk):
-            t = c * chunk + s
-            state, outs = step_fn(state, prev)
-            if bufs is None:
-                bufs = [torch.zeros((o.shape[0], total) + o.shape[1:],
-                                    dtype=o.dtype, device=o.device)
-                        for o in outs]
-            for buf, o in zip(bufs, outs):
-                buf[:, t] = o
-            prev = outs[0]
-        t0 = c * chunk
-        latch |= chunk_latch(bufs[2][:, t0:t0 + chunk], t0, min_steps)
-        c += 1
-    outputs, aligns, done, states = (b[:, :max_steps] for b in bufs)
-    num_steps = min(c * chunk, max_steps)
-    return DecodeLoopOut(outputs, aligns, done, states,
-                         _length_from_done(done, min_steps, num_steps),
-                         num_steps), state

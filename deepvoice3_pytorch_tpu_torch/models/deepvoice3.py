@@ -287,7 +287,7 @@ def decoder_precompute(params, cfg: DecoderConfig, encoder_out, *,
 
 def make_decoder_step(params, cfg: DecoderConfig, projected_kv, w_query, *,
                       mask=None):
-    """step_fn(state, x_t) for models/decode.decode_loop."""
+    """step_fn(state, x_t) for ops/fused_decode.PlainDecoder."""
     n_att = cfg.num_attention_layers
     table = params["embed_query_positions"]["w"]
     w_last = core.conv1d_weight(params["last_conv"])[0]

@@ -3,8 +3,8 @@
 deepvoice3_pytorch_tpu/ops/fused_decode.py.
 
 `fused_decode` dispatches on the device of its tensors:
-  * CPU  -> `fused_decode_plain`: the eager `decode_loop` over
-    `make_decoder_step`, chunked the same way;
+  * CPU  -> `fused_decode_plain`: the same host loop over `PlainDecoder`,
+    the eager `make_decoder_step`;
   * CUDA -> the hand-written kernel `csrc/fused_decode.cu`, driven chunk by
     chunk from the host through `FusedDecoder`; nothing falls back.
 
@@ -17,6 +17,8 @@ device-to-host read per chunk.
 weight norms once, packs the plan, K/V and mask, and launches one chunk at a
 time from an explicit `DecodeCarry` (previous frame, last_attended, ring
 buffers), so a streaming caller can resume a decode where it stopped.
+`PlainDecoder` has the same interface over the plain step for CPU tensors;
+`make_decoder` picks the one for the inputs' device.
 """
 
 import ctypes
@@ -27,7 +29,7 @@ import torch
 
 from .. import _build
 from ..models import deepvoice3 as dv3
-from ..models.decode import chunk_latch, decode_loop
+from ..models.decode import chunk_latch
 from . import core
 
 MASK = -1.0e9
@@ -182,7 +184,20 @@ def _check(t, name, shape, dtype, device):
                             tuple(t.shape), t.device, t.is_contiguous()))
 
 
-class FusedDecoder:
+class _Decoder:
+    """What both launch-and-carry decoders share: B, tk, C, out_dim, dtype
+    and device are set by the subclass."""
+
+    def new_outputs(self, total):
+        """Zeroed (outputs, alignments, done, decoder_states) buffers."""
+        z = dict(device=self.device, dtype=self.dtype)
+        return (torch.zeros(self.B, total, self.out_dim, **z),
+                torch.zeros(self.B, total, self.tk, **z),
+                torch.zeros(self.B, total, **z),
+                torch.zeros(self.B, total, self.C, **z))
+
+
+class FusedDecoder(_Decoder):
     """Launch-invariant state of one decode on the card: the plan with
     folded weights, the stacked projected K/V, the additive mask, the query
     position rates and the raw query-position angles of frames 1..n_steps
@@ -202,6 +217,7 @@ class FusedDecoder:
         self.B, self.tk, self.E = keys0.shape
         self.C = cfg.convolutions[0][0]
         self.out_dim = cfg.in_dim * cfg.r
+        self.dtype = torch.float32
         self.n_la = max(self.plan.n_att, 1)
         self.ring_floats = sum(r * c for r, c, _ in self.plan.buffers)
         if self.plan.act_dim > 4 * _THREADS:
@@ -234,13 +250,8 @@ class FusedDecoder:
                         device=self.device),
             torch.zeros(self.B, self.ring_floats, device=self.device))
 
-    def new_outputs(self, total):
-        """Zeroed (outputs, alignments, done, decoder_states) buffers."""
-        z = dict(device=self.device)
-        return (torch.zeros(self.B, total, self.out_dim, **z),
-                torch.zeros(self.B, total, self.tk, **z),
-                torch.zeros(self.B, total, **z),
-                torch.zeros(self.B, total, self.C, **z))
+    def last_attended(self, carry):
+        return carry.last_attended[:, :self.plan.n_att]
 
     def launch(self, carry, outputs, t0, steps):
         """Run frames t0 .. t0+steps-1 from `carry`: writes them into
@@ -279,9 +290,89 @@ class FusedDecoder:
         KERNEL.check(rc, "fused_decode launch")
 
 
+class PlainDecoder(_Decoder):
+    """`FusedDecoder`'s launch-and-carry interface over the plain step
+    (`make_decoder_step`): the plain version of kernel B1, which CPU tensors
+    take, so that a caller that drives a decode chunk by chunk
+    (streaming.tts_stream) is one piece of code on both devices. It runs in
+    the dtype of the inputs. The carry is a dict: the previous frame and
+    the step state (ring buffers, last_attended, frame index); `launch`
+    replaces its entries."""
+
+    def __init__(self, params, cfg, inputs, mask, n_steps):
+        keys0 = next(p for p in inputs["projected_kv"] if p is not None)[0]
+        self.B, self.tk = keys0.shape[:2]
+        self.device, self.dtype = keys0.device, keys0.dtype
+        self.C = cfg.convolutions[0][0]
+        self.out_dim = cfg.in_dim * cfg.r
+        self.cfg = cfg
+        self.n_steps = n_steps
+        self.att = [i for i, s in enumerate(cfg.attention_specs)
+                    if s is not None]
+        self.step_fn = dv3.make_decoder_step(params, cfg,
+                                             inputs["projected_kv"],
+                                             inputs["w_query"], mask=mask)
+
+    def zero_carry(self, initial_input):
+        return {"prev": initial_input.clone(),
+                "state": dv3.decoder_init_state(self.cfg, self.B,
+                                                self.device)}
+
+    def last_attended(self, carry):
+        return carry["state"]["last_attended"][:, self.att].to(torch.int32)
+
+    def launch(self, carry, outputs, t0, steps):
+        """Run frames t0 .. t0+steps-1 from `carry` into `outputs`."""
+        total = outputs[0].shape[1]
+        if carry["state"]["t"] != t0 or t0 + steps > min(total,
+                                                         self.n_steps):
+            raise ValueError("frames %d..%d do not follow the carry (frame "
+                             "%d) or exceed the buffers (%d)" % (
+                                 t0, t0 + steps, carry["state"]["t"], total))
+        state, prev = carry["state"], carry["prev"]
+        for t in range(t0, t0 + steps):
+            state, outs = self.step_fn(state, prev)
+            for buf, o in zip(outputs, outs):
+                buf[:, t] = o
+            prev = outs[0]
+        carry["state"], carry["prev"] = state, prev
+
+
+def make_decoder(params, cfg, inputs, mask, n_steps):
+    """The launch-and-carry decoder for the inputs' device: `FusedDecoder`
+    (kernel B1) for CUDA tensors, `PlainDecoder` for CPU tensors."""
+    kv = next(p for p in inputs["projected_kv"] if p is not None)[0]
+    if kv.device.type == "cpu":
+        return PlainDecoder(params, cfg, inputs, mask, n_steps)
+    return FusedDecoder(params, cfg, inputs, mask, n_steps)
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
+
+
+def _decode_chunks(decoder_cls, params, cfg, inputs, mask, initial_input,
+                   max_steps, min_steps, early_exit, chunk):
+    """The host loop: `chunk` frames per launch from a zero carry; with
+    early_exit, stop after the first chunk in which every sample's done
+    latch fired."""
+    chunk = min(chunk, max_steps)
+    n_chunks = -(-max_steps // chunk)
+    dec = decoder_cls(params, cfg, inputs, mask, n_chunks * chunk)
+    carry = dec.zero_carry(initial_input)
+    outs = dec.new_outputs(n_chunks * chunk)
+    latch = torch.zeros(dec.B, dtype=torch.bool, device=dec.device)
+    c = 0
+    while c < n_chunks and not (early_exit and bool(latch.all())):
+        t0 = c * chunk
+        dec.launch(carry, outs, t0, chunk)
+        if early_exit:
+            latch |= chunk_latch(outs[2][:, t0:t0 + chunk], t0, min_steps)
+        c += 1
+    o, a, d, s = (x[:, :max_steps] for x in outs)
+    return FusedDecodeOut(o, a, d, s, min(c * chunk, max_steps),
+                          dec.last_attended(carry))
 
 
 def fused_decode(params, cfg, inputs, mask, initial_input, max_steps,
@@ -297,35 +388,15 @@ def fused_decode(params, cfg, inputs, mask, initial_input, max_steps,
     if initial_input.device.type != "cuda":
         raise ValueError("fused_decode: unsupported device %s"
                          % initial_input.device)
-    chunk = min(chunk, max_steps)
-    n_chunks = -(-max_steps // chunk)
-    dec = FusedDecoder(params, cfg, inputs, mask, n_chunks * chunk)
-    carry = dec.zero_carry(initial_input)
-    outs = dec.new_outputs(n_chunks * chunk)
-    latch = torch.zeros(dec.B, dtype=torch.bool, device=dec.device)
-    c = 0
-    while c < n_chunks and not (early_exit and bool(latch.all())):
-        t0 = c * chunk
-        dec.launch(carry, outs, t0, chunk)
-        if early_exit:
-            latch |= chunk_latch(outs[2][:, t0:t0 + chunk], t0, min_steps)
-        c += 1
-    o, a, d, s = (x[:, :max_steps] for x in outs)
-    return FusedDecodeOut(o, a, d, s, min(c * chunk, max_steps),
-                          carry.last_attended[:, :dec.plan.n_att])
+    return _decode_chunks(FusedDecoder, params, cfg, inputs, mask,
+                          initial_input, max_steps, min_steps, early_exit,
+                          chunk)
 
 
 def fused_decode_plain(params, cfg, inputs, mask, initial_input, max_steps,
                        min_steps, *, early_exit=True, chunk=DEFAULT_CHUNK):
-    """Plain PyTorch version of the kernel: the eager decode loop over
-    `make_decoder_step`, latch checked every `chunk` frames."""
-    B = initial_input.shape[0]
-    step_fn = dv3.make_decoder_step(params, cfg, inputs["projected_kv"],
-                                    inputs["w_query"], mask=mask)
-    state = dv3.decoder_init_state(cfg, B, initial_input.device)
-    out, state = decode_loop(step_fn, state, initial_input, max_steps,
-                             min_steps, early_exit=early_exit, chunk=chunk)
-    att = [i for i, s in enumerate(cfg.attention_specs) if s is not None]
-    return FusedDecodeOut(out.outputs, out.alignments, out.done,
-                          out.decoder_states, out.num_steps,
-                          state["last_attended"][:, att].to(torch.int32))
+    """Plain PyTorch version of the kernel: the same host loop over
+    `PlainDecoder`, latch checked every `chunk` frames."""
+    return _decode_chunks(PlainDecoder, params, cfg, inputs, mask,
+                          initial_input, max_steps, min_steps, early_exit,
+                          chunk)

@@ -1,0 +1,246 @@
+# coding: utf-8
+"""Streaming TTS over HTTP, counterpart of the root serve.py's lock mode:
+one utterance at a time, each streamed as chunked-transfer WAV while
+`streaming.tts_stream` produces it.
+
+Endpoints (`make_handler`):
+    GET /tts?text=...   chunked WAV: a header with unknown (0xFFFFFFFF)
+                        lengths, then 16-bit PCM chunks as they are made
+    GET /healthz        200 "ok"
+    GET /stats          JSON: request counts, streams in flight, time to
+                        first audio (last 512 requests: mean/p50/p95),
+                        audio seconds produced, uptime
+
+The engine runs where the parameters live. Continuous batching (`slots`)
+and the command line, which loads a checkpoint, are not ported yet.
+"""
+
+import collections
+import json
+import queue
+import struct
+import threading
+import time
+from http.server import BaseHTTPRequestHandler
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+
+from . import streaming
+
+
+def wav_stream_header(sample_rate, bits=16, channels=1):
+    """RIFF/WAVE header with unknown (streaming) lengths."""
+    byte_rate = sample_rate * channels * bits // 8
+    block_align = channels * bits // 8
+    return b"".join([
+        b"RIFF", struct.pack("<I", 0xFFFFFFFF), b"WAVE",
+        b"fmt ", struct.pack("<IHHIIHH", 16, 1, channels, sample_rate,
+                             byte_rate, block_align, bits),
+        b"data", struct.pack("<I", 0xFFFFFFFF),
+    ])
+
+
+def pcm16(x):
+    x = np.clip(np.asarray(x, np.float32), -1.0, 1.0)
+    return (x * 32767.0).astype("<i2").tobytes()
+
+
+class TTSEngine:
+    """Model + streaming pipeline, one utterance at a time.
+
+    One producer thread, started here, synthesizes the requests in the
+    order they came; each request's generator reads its chunks from a queue
+    of its own, so a slow client never holds back the producer. The JAX
+    engine starts a thread per request; here that would cost time to first
+    audio, because PyTorch keeps per-thread state (cuDNN's execution plans,
+    library handles) that every new thread builds again (chip_smoke.py
+    phase `serve` measures a stream's first audio in fresh threads against
+    the calling thread)."""
+
+    def __init__(self, params, cfg, ap, frontend_mod, max_decoder_steps,
+                 slots=0):
+        if slots:
+            raise NotImplementedError(
+                "continuous batching (slots > 0) is not ported yet; it comes "
+                "with the serving slice (serving.ContinuousBatcher)")
+        self.params = params
+        self.cfg = cfg
+        self.ap = ap
+        self.frontend = frontend_mod
+        self.max_decoder_steps = max_decoder_steps
+        self._jobs = queue.Queue()
+        threading.Thread(target=self._produce, daemon=True).start()
+        self._t_start = time.time()
+        self._stats_lock = threading.Lock()
+        self._counts = {"requests_total": 0, "requests_failed": 0,
+                        "requests_disconnected": 0, "active_streams": 0,
+                        "audio_seconds_total": 0.0}
+        self._ttfa_ms = collections.deque(maxlen=512)
+
+    def shutdown(self):
+        """Stop the producer thread once the queued requests are done."""
+        self._jobs.put(None)
+
+    def warmup(self):
+        # _stream_inner directly: the warm-up request stays out of the
+        # serving time-to-first-audio distribution
+        for _ in self._stream_inner("warm up."):
+            pass
+
+    def stats(self):
+        """Serving metrics snapshot (the /stats endpoint)."""
+        with self._stats_lock:
+            s = dict(self._counts)
+            ttfa = sorted(self._ttfa_ms)
+        s["audio_seconds_total"] = round(s["audio_seconds_total"], 3)
+        if ttfa:
+            n = len(ttfa)
+            s["ttfa_ms"] = {
+                "count": n,
+                "mean": round(sum(ttfa) / n, 1),
+                "p50": round(ttfa[n // 2], 1),
+                "p95": round(ttfa[min(n - 1, int(0.95 * n))], 1),
+            }
+        s["slots"] = 0
+        s["uptime_s"] = round(time.time() - self._t_start, 1)
+        return s
+
+    def stream(self, text, speaker_id=None):
+        """_stream_inner plus serving metrics: request and failure counts,
+        streams in flight, time to first audio, audio seconds produced."""
+        t0 = time.perf_counter()
+        with self._stats_lock:
+            self._counts["requests_total"] += 1
+            self._counts["active_streams"] += 1
+        n_samples, first = 0, True
+        try:
+            for audio in self._stream_inner(text, speaker_id=speaker_id):
+                if first:
+                    first = False
+                    with self._stats_lock:
+                        self._ttfa_ms.append(
+                            (time.perf_counter() - t0) * 1000.0)
+                n_samples += len(audio)
+                yield audio
+        except GeneratorExit:
+            # a client that hangs up closes the generator: a disconnect,
+            # not a synthesis failure
+            with self._stats_lock:
+                self._counts["requests_disconnected"] += 1
+            raise
+        except BaseException:
+            with self._stats_lock:
+                self._counts["requests_failed"] += 1
+            raise
+        finally:
+            with self._stats_lock:
+                self._counts["active_streams"] -= 1
+                self._counts["audio_seconds_total"] += \
+                    n_samples / float(self.ap.sample_rate)
+
+    def _produce(self):
+        """The producer thread: synthesizes each queued request into its
+        queue, trimmed to the decoded length; None stops it."""
+        while True:
+            job = self._jobs.get()
+            if job is None:
+                return
+            text, spk, q = job
+            try:
+                emitted = 0
+                for chunk in streaming.tts_stream(
+                        self.params, self.cfg, self.ap, self.frontend,
+                        [text], speaker_ids=spk,
+                        max_decoder_steps=self.max_decoder_steps):
+                    audio = chunk["audio"][0]
+                    if chunk["final"]:
+                        # trim the post-done tail of the final emission
+                        n_total = streaming.decoded_samples(
+                            self.cfg, self.ap, chunk["decoded_steps"][0])
+                        audio = audio[:max(0, n_total - emitted)]
+                    emitted += len(audio)
+                    if len(audio):
+                        q.put(("audio", audio))
+                q.put(("end", None))
+            except BaseException as e:           # surface in the handler
+                q.put(("error", e))
+
+    def _stream_inner(self, text, speaker_id=None):
+        """Yields float32 sample chunks of one utterance, trimmed to the
+        decoded length, as the producer thread makes them."""
+        spk = None if speaker_id is None else [int(speaker_id)]
+        q = queue.Queue()
+        self._jobs.put((text, spk, q))
+        while True:
+            try:
+                kind, payload = q.get(timeout=600)
+            except queue.Empty:
+                return        # stalled producer: end the stream cleanly
+            if kind == "end":
+                return
+            if kind == "error":
+                raise payload
+            yield payload
+
+
+def make_handler(engine):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):  # quiet
+            pass
+
+        def _json(self, code, obj):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            url = urlparse(self.path)
+            if url.path == "/healthz":
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain")
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"ok")
+                return
+            if url.path == "/stats":
+                self._json(200, engine.stats())
+                return
+            if url.path != "/tts":
+                self._json(404, {"error": "unknown path %s" % url.path})
+                return
+            q = parse_qs(url.query)
+            text = (q.get("text") or [""])[0].strip()
+            if not text:
+                self._json(400, {"error": "missing ?text="})
+                return
+            speaker = (q.get("speaker_id") or [None])[0]
+            try:
+                gen = engine.stream(text, speaker_id=speaker)
+                first = next(gen, None)
+            except Exception as e:  # synthesis errors as HTTP 500
+                self._json(500, {"error": str(e)})
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", "audio/wav")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+
+            def chunk(data):
+                self.wfile.write(b"%x\r\n" % len(data))
+                self.wfile.write(data)
+                self.wfile.write(b"\r\n")
+
+            chunk(wav_stream_header(engine.ap.sample_rate))
+            if first is not None and len(first):
+                chunk(pcm16(first))
+            for audio in gen:
+                chunk(pcm16(audio))
+            self.wfile.write(b"0\r\n\r\n")
+
+    return Handler

@@ -2,7 +2,9 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small shapes that reach the cases chip_smoke.py does not: chunk hand-off
 of the decode carry across launches, non-monotonic attention, no mask,
-long padded texts, tile edges of the Griffin-Lim GEMMs, and the ragged
+long padded texts, tile edges of the Griffin-Lim GEMMs, its streaming
+modes (given start, pinned frames, returned spectrum) and unfolded
+windows, a tiny model's stream on the card against the CPU, and the ragged
 edges of the tap-accumulating conv (T, C, N off the tiles, B = 1, taps
 wholly in the pad) with the determinism of its weight gradient.
 
@@ -127,6 +129,108 @@ def test_griffin_lim_kernel_matches_plain(dev, fft, hop, B, n, n_iters,
                                      phase_init=phase_init)[:, :n * hop]
     rel = float((got - want).abs().max() / want.abs().max())
     assert rel <= 3e-3, rel
+
+
+@pytest.mark.parametrize("fft,hop,B,n,n_iters", [
+    (1024, 256, 2, 37, 0), (1024, 256, 2, 37, 1), (128, 32, 3, 21, 1)])
+def test_griffin_lim_unfolded_kernel_matches_plain(dev, fft, hop, B, n,
+                                                   n_iters):
+    """The probe kernel P (windows applied in f32 outside the bf16 DFT
+    matrices), SPSI start, at the bar of the folded schedule above."""
+    g = torch.Generator().manual_seed(1)
+    S = (torch.rand(B, n, fft // 2 + 1, generator=g) ** 2).to(dev)
+    win = dsp.lws_hann_window(fft, hop)
+    gl_cuda.KERNEL.reset_counts()
+    got = gl_cuda.griffin_lim(S, fft, hop, win, n_iters=n_iters,
+                              fold_windows=False)
+    assert gl_cuda.KERNEL.by_entry == {"unfolded": 1}
+    want = gl_cuda.griffin_lim_plain(S, fft, hop, win, n_iters=n_iters,
+                                     fold_windows=False)[:, :n * hop]
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= 3e-3, rel
+
+
+@pytest.mark.parametrize("B,n,n_pinned,n_iters,fold,zero_rows", [
+    (2, 37, 0, 2, True, False),     # a given start without pinning
+    (2, 37, 37, 2, True, False),    # every frame pinned
+    (1, 152, 16, 2, True, True),    # B = 1 at a stream window's length,
+                                    # pinned and free rows of zeros
+    (3, 21, 5, 1, False, False),    # unfolded; B*n off the 64-row tile
+])
+def test_griffin_lim_stream_modes_match_plain(dev, B, n, n_pinned, n_iters,
+                                              fold, zero_rows):
+    """init_spec / n_pinned / return_spec on the card. Waveform 3e-3 of the
+    peak as above; the returned bf16 spectrum 2^-8 (bf16's precision) in
+    relative L2 norm; pinned frames bit-equal to the kernel's own start
+    (its spectrum after 0 iterations); a start of zeros (the 1e-30 guard)
+    gives zeros, not NaN."""
+    fft, hop = 1024, 256
+    g = torch.Generator().manual_seed(2)
+    S = (torch.rand(B, n, fft // 2 + 1, generator=g) ** 2).to(dev)
+    init = [torch.randn(B, n, fft // 2 + 1, generator=g).to(dev)
+            for _ in range(2)]
+    if zero_rows:
+        for a in init:
+            a[:, 3] = 0.0
+            a[:, n - 5] = 0.0
+    win = dsp.lws_hann_window(fft, hop)
+    kw = dict(init_spec=tuple(init), n_pinned=n_pinned, return_spec=True,
+              fold_windows=fold)
+    gl_cuda.KERNEL.reset_counts()
+    wav, spec = gl_cuda.griffin_lim(S, fft, hop, win, n_iters=n_iters, **kw)
+    _, start = gl_cuda.griffin_lim(S, fft, hop, win, n_iters=0, **kw)
+    mode = "unfolded" if not fold else "pinned" if n_pinned else "init"
+    assert gl_cuda.KERNEL.by_entry == {mode: 2}
+    want, want_spec = gl_cuda.griffin_lim_plain(S, fft, hop, win,
+                                                n_iters=n_iters, **kw)
+    want = want[:, :n * hop]
+    assert torch.isfinite(wav).all()
+    rel = float((wav - want).abs().max() / want.abs().max())
+    assert rel <= 3e-3, rel
+    c_got = torch.complex(*spec)
+    c_want = torch.complex(*want_spec)
+    assert float((c_got - c_want).abs().norm() / c_want.abs().norm()) \
+        <= 2.0 ** -8
+    for got, st in zip(spec, start):
+        assert torch.equal(got[:, :n_pinned], st[:, :n_pinned])
+    if zero_rows:
+        for got in spec:
+            assert torch.equal(got[:, 3], torch.zeros_like(got[:, 3]))
+
+
+def test_tiny_stream_gpu_matches_cpu(dev):
+    """A tiny model's tts_stream on the card (B1, B2's stream modes)
+    against the same stream on the CPU (plain versions): decoded steps and
+    chunk sizes exact, linear frames 1e-4, audio 0.12 of the peak (two bf16
+    Griffin-Lim schedules with their sums in another order, amplified by 32
+    iterations a window)."""
+    from deepvoice3_pytorch_tpu_torch import hparams, streaming
+    from deepvoice3_pytorch_tpu_torch.dsp.audio import AudioProcessor
+    from deepvoice3_pytorch_tpu_torch.frontend import en
+
+    cfg = builder.deepvoice3(
+        n_vocab=en.n_vocab, embed_dim=32, mel_dim=16, linear_dim=65, r=1,
+        downsample_step=4, kernel_size=3, encoder_channels=32,
+        decoder_channels=32, converter_channels=32, use_memory_mask=True,
+        key_projection=True, value_projection=True, max_positions=64)
+    params = builder.model_init(cfg, torch.Generator().manual_seed(7),
+                                device="cpu")
+    hp = hparams.default_hparams()
+    hp.fft_size, hp.hop_size = 128, 32
+    ap = AudioProcessor(hp)
+    texts = ["Hello streaming world.", "A second, longer sentence here."]
+    kw = dict(max_decoder_steps=40, emit_linear=True)
+    ref = list(streaming.tts_stream(params, cfg, ap, en, texts, **kw))
+    fd.KERNEL.reset_counts()
+    gl_cuda.KERNEL.reset_counts()
+    got = list(streaming.tts_stream(params.to(dev), cfg, ap, en, texts, **kw))
+    assert fd.KERNEL.launches > 0 and gl_cuda.KERNEL.by_entry.get("pinned")
+    assert [c["audio"].shape for c in got] == [c["audio"].shape for c in ref]
+    assert (got[-1]["decoded_steps"] == ref[-1]["decoded_steps"]).all()
+    for g_, r_ in zip(got, ref):
+        assert float(abs(g_["linear"] - r_["linear"]).max()) <= 1e-4
+        peak = max(float(abs(r_["audio"]).max()), 1e-6)
+        assert float(abs(g_["audio"] - r_["audio"]).max()) <= 0.12 * peak
 
 
 def test_griffin_lim_kernel_rejects_bad_framing(dev):
