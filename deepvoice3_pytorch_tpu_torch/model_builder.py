@@ -11,7 +11,7 @@ def build_config(hp, n_vocab):
     """Map the hparams surface onto a builder call."""
     build_fn = getattr(builder_mod, hp.builder, None)
     if build_fn is None:
-        raise NotImplementedError("builder %r is not ported yet" % hp.builder)
+        raise ValueError("unknown builder %r" % hp.builder)
     return build_fn(
         n_speakers=hp.n_speakers,
         speaker_embed_dim=hp.speaker_embed_dim,

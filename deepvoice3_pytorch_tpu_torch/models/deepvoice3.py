@@ -5,8 +5,10 @@ deepvoice3_pytorch_tpu/models/deepvoice3.py.
 Configs are the JAX package's frozen dataclasses; parameters are indexable
 nodes (`params.ParamTree` or nested dicts) with the JAX key paths. The
 full-sequence applies take `training` and a `generator` for dropout, drawn
-in order from the one generator where the JAX package splits keys. The
-multi-speaker paths are not ported yet.
+in order from the one generator where the JAX package splits keys. A
+multi-speaker model (n_speakers > 1) takes a (B, D) speaker embedding:
+softsign biases in the encoder and in every GLU layer, per-sample key and
+query position rates in the decoder.
 """
 
 import math
@@ -21,6 +23,13 @@ from ..ops import core
 from ..ops.positional import position_encoding_init, sinusoidal_encoding
 
 SQRT_HALF = math.sqrt(0.5)
+
+
+def expand_speaker_embed(speaker_embed, T):
+    """(B, D) -> (B, T, D)."""
+    if speaker_embed is None:
+        return None
+    return speaker_embed[:, None, :].expand(-1, T, -1)
 
 
 class _GradMultiply(torch.autograd.Function):
@@ -84,21 +93,36 @@ class EncoderConfig:
 
 
 def encoder_init(generator, cfg: EncoderConfig):
-    return {
+    params = {
         "embed_tokens": core.embedding_init(
             generator, cfg.n_vocab, cfg.embed_dim, cfg.padding_idx,
             cfg.embedding_weight_std),
-        "layers": cb.stack_init(generator, cfg.specs),
+        "layers": cb.stack_init(generator, cfg.specs, cfg.speaker_embed_dim),
     }
+    if cfg.n_speakers > 1:
+        for name in ("speaker_fc1", "speaker_fc2"):
+            params[name] = core.linear_init(
+                generator, cfg.speaker_embed_dim, cfg.embed_dim,
+                dropout=cfg.dropout)
+    return params
 
 
 def encoder_apply(params, cfg: EncoderConfig, text_sequences, *,
-                  training=False, generator=None):
-    """(B, T) int tokens -> (keys, values), each (B, T, embed_dim)."""
+                  speaker_embed=None, training=False, generator=None):
+    """(B, T) int tokens -> (keys, values), each (B, T, embed_dim).
+    speaker_embed: (B, D) for a multi-speaker model, else None."""
     x = core.embedding_apply(params["embed_tokens"], text_sequences)
     x = core.dropout(generator, x, cfg.dropout, training)
-    keys = cb.stack_apply(params["layers"], cfg.specs, x, training=training,
+    se = expand_speaker_embed(speaker_embed, x.shape[1])
+    if se is not None:
+        se = core.dropout(generator, se, cfg.dropout, training)
+        x = x + core.softsign(core.linear_apply(params["speaker_fc1"], se))
+    keys = cb.stack_apply(params["layers"], cfg.specs, x,
+                          speaker_embed_btc=se, training=training,
                           generator=generator)
+    if se is not None:
+        keys = keys + core.softsign(
+            core.linear_apply(params["speaker_fc2"], se))
     if cfg.apply_grad_scaling and cfg.num_attention_layers:
         keys = grad_multiply(keys, 1.0 / (2.0 * cfg.num_attention_layers))
     return keys, (keys + x) * SQRT_HALF
@@ -187,14 +211,16 @@ class DecoderConfig:
 def decoder_init(generator, cfg: DecoderConfig):
     conv_channels = cfg.convolutions[0][0]
     dev = generator.device
-    return {
+    params = {
         # raw-angle tables; sin/cos and the rate are applied at lookup
         "embed_query_positions": {"w": torch.from_numpy(position_encoding_init(
             cfg.max_positions, conv_channels, 1.0, sinusoidal=False)).to(dev)},
         "embed_keys_positions": {"w": torch.from_numpy(position_encoding_init(
             cfg.max_positions, cfg.embed_dim, 1.0, sinusoidal=False)).to(dev)},
-        "prenet": cb.stack_init(generator, cfg.prenet_specs),
-        "convs": cb.stack_init(generator, cfg.conv_specs),
+        "prenet": cb.stack_init(generator, cfg.prenet_specs,
+                                cfg.speaker_embed_dim),
+        "convs": cb.stack_init(generator, cfg.conv_specs,
+                               cfg.speaker_embed_dim),
         "attention": [attn_ops.attention_init(generator, spec)
                       if spec is not None else {}
                       for spec in cfg.attention_specs],
@@ -203,11 +229,38 @@ def decoder_init(generator, cfg: DecoderConfig):
                                       dropout=cfg.dropout, std_mul=4.0),
         "fc": core.linear_init(generator, cfg.in_dim * cfg.r, 1),
     }
+    if cfg.n_speakers > 1:
+        for name in ("speaker_proj1", "speaker_proj2"):
+            params[name] = core.linear_init(
+                generator, cfg.speaker_embed_dim, 1, dropout=cfg.dropout)
+    return params
+
+
+def attention_params(params, cfg):
+    """The decoder's attention parameters, one entry per conv layer: a tree
+    rebuilt from a state_dict (`params.nest`) has no entry for layers past
+    the last one with attention, so those are filled with {}."""
+    attn = list(params["attention"])
+    return attn + [{}] * (len(cfg.attention) - len(attn))
+
+
+def _position_rates(params, cfg, speaker_embed):
+    """Key and query position rates: the configured floats, or (B,) tensors
+    scaled by sigmoid(speaker_proj(speaker_embed)) for a multi-speaker
+    model."""
+    w_key, w_query = cfg.key_position_rate, cfg.query_position_rate
+    if speaker_embed is not None and "speaker_proj1" in params:
+        w_key = w_key * torch.sigmoid(
+            core.linear_apply(params["speaker_proj1"], speaker_embed))[..., 0]
+        w_query = w_query * torch.sigmoid(
+            core.linear_apply(params["speaker_proj2"], speaker_embed))[..., 0]
+    return w_key, w_query
 
 
 def decoder_apply(params, cfg: DecoderConfig, encoder_out, inputs, *,
-                  text_positions=None, frame_positions=None, lengths=None,
-                  training=False, generator=None):
+                  text_positions=None, frame_positions=None,
+                  speaker_embed=None, lengths=None, training=False,
+                  generator=None):
     """Teacher-forced decoder forward.
 
     inputs: (B, T, in_dim) mel frames or (B, T // r, in_dim * r) grouped.
@@ -218,28 +271,31 @@ def decoder_apply(params, cfg: DecoderConfig, encoder_out, inputs, *,
     if inputs.shape[-1] == cfg.in_dim:
         inputs = inputs.reshape(B, inputs.shape[1] // cfg.r,
                                 cfg.in_dim * cfg.r)
+    se = expand_speaker_embed(speaker_embed, inputs.shape[1])
+    if se is not None:
+        se = core.dropout(generator, se, cfg.dropout, training)
     mask = (core.get_mask_from_lengths(lengths, keys.shape[1])
             if cfg.use_memory_mask and lengths is not None else None)
+    w_key, w_query = _position_rates(params, cfg, speaker_embed)
     if text_positions is not None:
         keys = keys + sinusoidal_encoding(
-            text_positions, params["embed_keys_positions"]["w"],
-            cfg.key_position_rate)
+            text_positions, params["embed_keys_positions"]["w"], w_key)
     frame_pos_embed = None
     if frame_positions is not None:
         frame_pos_embed = sinusoidal_encoding(
-            frame_positions, params["embed_query_positions"]["w"],
-            cfg.query_position_rate)
+            frame_positions, params["embed_query_positions"]["w"], w_query)
 
     x = core.dropout(generator, inputs, cfg.dropout, training)
     x = cb.stack_apply(params["prenet"], cfg.prenet_specs, x,
-                       training=training, generator=generator)
+                       speaker_embed_btc=se, training=training,
+                       generator=generator)
     alignments = []
     for p_conv, spec, p_attn, attn_spec in zip(
-            params["convs"], cfg.conv_specs, params["attention"],
+            params["convs"], cfg.conv_specs, attention_params(params, cfg),
             cfg.attention_specs):
         residual = x
-        x = cb.spec_apply(p_conv, spec, x, training=training,
-                          generator=generator)
+        x = cb.spec_apply(p_conv, spec, x, speaker_embed_btc=se,
+                          training=training, generator=generator)
         if attn_spec is not None:
             q = x if frame_pos_embed is None else x + frame_pos_embed
             keys_i, values_i = attn_ops.project_keys_values(
@@ -269,24 +325,24 @@ def decoder_init_state(cfg: DecoderConfig, batch: int, device=None):
 
 
 def decoder_precompute(params, cfg: DecoderConfig, encoder_out, *,
-                       text_positions=None):
+                       text_positions=None, speaker_embed=None):
     """Once-per-utterance work: text position encodings on the keys and the
     per-attention-layer key/value projections. Returns (projected_kv,
-    w_query)."""
+    w_query), w_query a float or, multi-speaker, a (B,) tensor."""
     keys, values = encoder_out
+    w_key, w_query = _position_rates(params, cfg, speaker_embed)
     if text_positions is not None:
         keys = keys + sinusoidal_encoding(
-            text_positions, params["embed_keys_positions"]["w"],
-            cfg.key_position_rate)
+            text_positions, params["embed_keys_positions"]["w"], w_key)
     projected = [None if spec is None else attn_ops.project_keys_values(
                      p_attn, spec, keys, values)
-                 for p_attn, spec in zip(params["attention"],
+                 for p_attn, spec in zip(attention_params(params, cfg),
                                          cfg.attention_specs)]
-    return projected, cfg.query_position_rate
+    return projected, w_query
 
 
 def make_decoder_step(params, cfg: DecoderConfig, projected_kv, w_query, *,
-                      mask=None):
+                      speaker_embed=None, mask=None):
     """step_fn(state, x_t) for ops/fused_decode.PlainDecoder."""
     n_att = cfg.num_attention_layers
     table = params["embed_query_positions"]["w"]
@@ -301,15 +357,17 @@ def make_decoder_step(params, cfg: DecoderConfig, projected_kv, w_query, *,
         fpe = sinusoidal_encoding(frame_pos, table, w_query)[:, 0]
 
         prenet_states, x = cb.stack_step(params["prenet"], cfg.prenet_specs,
-                                         state["prenet"], x_t)
+                                         state["prenet"], x_t,
+                                         speaker_embed=speaker_embed)
         conv_states = []
         new_la = state["last_attended"]
         ave_align = None
         for idx, (p_conv, spec, p_attn, attn_spec) in enumerate(zip(
-                params["convs"], cfg.conv_specs, params["attention"],
+                params["convs"], cfg.conv_specs, attention_params(params, cfg),
                 cfg.attention_specs)):
             residual = x
-            st, x = cb.spec_step(p_conv, spec, state["convs"][idx], x)
+            st, x = cb.spec_step(p_conv, spec, state["convs"][idx], x,
+                                 speaker_embed=speaker_embed)
             conv_states.append(st)
             if attn_spec is not None:
                 monotonic = cfg.force_monotonic_attention[idx]
@@ -332,21 +390,51 @@ def make_decoder_step(params, cfg: DecoderConfig, projected_kv, w_query, *,
     return step_fn
 
 
+def query_position_table(table, max_steps):
+    """Rows of a query-position table for frames 1..max_steps, the last row
+    repeated past its end (as `sinusoidal_encoding` clamps); max_steps=None
+    gives every row past the padding row 0."""
+    if max_steps is None:
+        return table[1:]
+    steps = torch.arange(1, max_steps + 1, device=table.device)
+    return table[steps.clamp(max=table.shape[0] - 1)]
+
+
 def fused_decode_inputs(params, cfg: DecoderConfig, encoder_out,
-                        text_positions):
+                        text_positions, max_steps=None, *, speaker_embed=None):
     """Launch-ready inputs for ops/fused_decode: the projected attention
-    K/V and the per-sample query position rates (B,). The kernel's wrapper
-    takes the raw query-position angles from the parameters itself."""
+    K/V, the raw query-position angles of frames 1..max_steps
+    (`fpe_table`, `fpe_raw` True: the kernel applies the rate and sin/cos),
+    the per-sample query position rates (B,), and for a multi-speaker model
+    the per-layer GLU softsign biases, each (B, cout), in plan order
+    (prenet, then convs), with the speaker embedding the plain step takes."""
     B = encoder_out[0].shape[0]
+    dev = encoder_out[0].device
     projected_kv, w_query = decoder_precompute(
-        params, cfg, encoder_out, text_positions=text_positions)
-    wq = torch.full((B,), float(w_query), device=encoder_out[0].device)
-    return dict(projected_kv=projected_kv, w_query=wq)
+        params, cfg, encoder_out, text_positions=text_positions,
+        speaker_embed=speaker_embed)
+    if isinstance(w_query, torch.Tensor):
+        wq = w_query.reshape(B)
+    else:
+        wq = torch.full((B,), float(w_query), device=dev)
+    speaker_bias = None
+    if speaker_embed is not None:
+        speaker_bias = [
+            core.softsign(core.linear_apply(p["speaker_proj"], speaker_embed))
+            for plist, specs in ((params["prenet"], cfg.prenet_specs),
+                                 (params["convs"], cfg.conv_specs))
+            for p, s in zip(plist, specs)
+            if s.kind == "glu" and s.speaker_proj]
+    return dict(projected_kv=projected_kv,
+                fpe_table=query_position_table(
+                    params["embed_query_positions"]["w"], max_steps),
+                fpe_raw=True, w_query=wq, speaker_bias=speaker_bias,
+                speaker_embed=speaker_embed)
 
 
 def decoder_decode(params, cfg: DecoderConfig, encoder_out, text_positions, *,
-                   lengths=None, initial_input=None, max_decoder_steps=None,
-                   early_exit=False):
+                   speaker_embed=None, lengths=None, initial_input=None,
+                   max_decoder_steps=None, early_exit=False):
     """Greedy autoregressive decoding through ops/fused_decode: the CUDA
     kernel for CUDA tensors, its plain version for CPU tensors. The padding
     mask is applied whenever `lengths` is given."""
@@ -360,7 +448,8 @@ def decoder_decode(params, cfg: DecoderConfig, encoder_out, text_positions, *,
             if lengths is not None else None)
     if initial_input is None:
         initial_input = torch.zeros(B, cfg.in_dim * cfg.r, device=keys.device)
-    fi = fused_decode_inputs(params, cfg, encoder_out, text_positions)
+    fi = fused_decode_inputs(params, cfg, encoder_out, text_positions,
+                             max_steps, speaker_embed=speaker_embed)
     out = fd.fused_decode(params, cfg, fi, mask, initial_input, max_steps,
                           cfg.min_decoder_steps, early_exit=early_exit)
     return decode_lib.DecodeLoopOut(
@@ -430,12 +519,22 @@ class ConverterConfig:
 
 
 def converter_init(generator, cfg: ConverterConfig):
-    return {"layers": cb.stack_init(generator, cfg.specs)}
+    return {"layers": cb.stack_init(generator, cfg.specs,
+                                    cfg.speaker_embed_dim)}
 
 
-def converter_apply(params, cfg: ConverterConfig, x, *, training=False,
-                    generator=None):
-    """(B, T, in_dim) -> (B, T * upsampling, out_dim), sigmoid output."""
-    return torch.sigmoid(cb.stack_apply(params["layers"], cfg.specs, x,
-                                        training=training,
-                                        generator=generator))
+def converter_apply(params, cfg: ConverterConfig, x, *, speaker_embed=None,
+                    training=False, generator=None):
+    """(B, T, in_dim) -> (B, T * upsampling, out_dim), sigmoid output. The
+    speaker embedding is expanded (and, training, dropped out) again
+    whenever an upsampling layer has changed T."""
+    se = None
+    for p, s in zip(params["layers"], cfg.specs):
+        if s.speaker_proj and speaker_embed is not None and (
+                se is None or se.shape[1] != x.shape[1]):
+            se = core.dropout(generator,
+                              expand_speaker_embed(speaker_embed, x.shape[1]),
+                              cfg.dropout, training)
+        x = cb.spec_apply(p, s, x, speaker_embed_btc=se, training=training,
+                          generator=generator)
+    return torch.sigmoid(x)

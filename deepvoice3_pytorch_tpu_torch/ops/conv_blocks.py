@@ -5,8 +5,9 @@ deepvoice3_pytorch_tpu/ops/conv_blocks.py.
 A stack is a static tuple of `ConvSpec`s plus a parallel list of parameter
 nodes. The same specs drive the full-sequence path (`stack_apply`, with
 input dropout before each GLU conv when training) and the one-frame path
-against ring buffers (`stack_step`). The highway blocks and the
-multi-speaker softsign bias are not ported yet; specs that need them raise.
+against ring buffers (`stack_step`). GLU layers of a multi-speaker model
+add a softsign speaker bias to the gate's value half; highway layers (nyanko)
+gate between the conv output and their input, or add a GLU residual.
 """
 
 import math
@@ -46,6 +47,15 @@ def glu_spec(in_ch, out_ch, kw, dilation, causal, residual, std_mul, dropout,
                     speaker_proj=multispeaker)
 
 
+def highway_spec(in_ch, out_ch, kw, dilation, causal, dropout, std_mul=None,
+                 glu=False):
+    if std_mul is None:
+        std_mul = 4.0 if glu else 1.0
+    return ConvSpec("highway", in_ch, out_ch, kw, dilation, causal, False,
+                    std_mul, init_dropout=dropout, dropout=dropout,
+                    highway_glu=glu)
+
+
 def conv1x1_spec(in_ch, out_ch, std_mul, init_dropout=0.0, activation=None):
     return ConvSpec("conv1x1", in_ch, out_ch, 1, 1, False, False, std_mul,
                     init_dropout=init_dropout, activation=activation)
@@ -55,31 +65,28 @@ def convT_spec(in_ch, out_ch, kw=2, stride=2, std_mul=1.0):
     return ConvSpec("convT", in_ch, out_ch, kw, stride=stride, std_mul=std_mul)
 
 
-def _check_supported(spec):
-    if spec.kind == "highway" or spec.speaker_proj:
-        raise NotImplementedError(
-            "highway blocks and speaker projections are not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
 
-def spec_init(generator, spec: ConvSpec):
-    _check_supported(spec)
+def spec_init(generator, spec: ConvSpec, speaker_embed_dim: int = 0):
     if spec.kind == "convT":
         return {"conv": core.conv_transpose1d_init(
             generator, spec.in_channels, spec.out_channels, spec.kernel_size,
             dropout=spec.init_dropout, std_mul=spec.std_mul)}
-    n_out = spec.out_channels * (2 if spec.kind == "glu" else 1)
-    return {"conv": core.conv1d_init(
+    n_out = spec.out_channels * (2 if spec.kind in ("glu", "highway") else 1)
+    params = {"conv": core.conv1d_init(
         generator, spec.in_channels, n_out, spec.kernel_size,
         dropout=spec.init_dropout, std_mul=spec.std_mul)}
+    if spec.speaker_proj:
+        params["speaker_proj"] = core.linear_init(
+            generator, speaker_embed_dim, spec.out_channels)
+    return params
 
 
-def stack_init(generator, specs):
-    return [spec_init(generator, s) for s in specs]
+def stack_init(generator, specs, speaker_embed_dim: int = 0):
+    return [spec_init(generator, s, speaker_embed_dim) for s in specs]
 
 
 # ---------------------------------------------------------------------------
@@ -95,18 +102,29 @@ def _activate(x, name):
     return x
 
 
-def _gate(spec, y, residual):
-    """GLU gate on a conv output with 2*out_channels on the last axis."""
+def _gate(params, spec, y, residual, speaker_embed):
+    """Gate of a GLU or highway layer on a conv output with 2*out_channels
+    on the last axis. speaker_embed: (B, T, D) or (B, D), the same leading
+    axes as y; a GLU layer with a speaker projection adds
+    softsign(speaker_proj(speaker_embed)) to the value half."""
     a, b = torch.chunk(y, 2, dim=-1)
-    x = a * torch.sigmoid(b)
-    return (x + residual) * SQRT_HALF if spec.residual else x
+    if spec.kind == "glu":
+        if spec.speaker_proj and speaker_embed is not None:
+            a = a + core.softsign(
+                core.linear_apply(params["speaker_proj"], speaker_embed))
+        x = a * torch.sigmoid(b)
+        return (x + residual) * SQRT_HALF if spec.residual else x
+    if spec.highway_glu:
+        return (a * torch.sigmoid(b) + residual) * SQRT_HALF
+    gate = torch.sigmoid(b)
+    return gate * a + (1.0 - gate) * residual
 
 
-def spec_apply(params, spec: ConvSpec, x, *, training=False, generator=None):
+def spec_apply(params, spec: ConvSpec, x, *, speaker_embed_btc=None,
+               training=False, generator=None):
     """Apply one layer to (B, T, C). Returns (B, T', C'). When training, a
-    GLU layer's input is dropped out (rate spec.dropout) before the conv;
-    the residual is the undropped input."""
-    _check_supported(spec)
+    GLU or highway layer's input is dropped out (rate spec.dropout) before
+    the conv; the residual is the undropped input."""
     if spec.kind in ("conv1x1", "conv"):
         y = core.conv1d_apply(params["conv"], x, dilation=spec.dilation,
                               causal=spec.causal)
@@ -118,12 +136,14 @@ def spec_apply(params, spec: ConvSpec, x, *, training=False, generator=None):
     x = core.dropout(generator, x, spec.dropout, training)
     y = core.conv1d_apply(params["conv"], x, dilation=spec.dilation,
                           causal=spec.causal)
-    return _gate(spec, y, residual)
+    return _gate(params, spec, y, residual, speaker_embed_btc)
 
 
-def stack_apply(params, specs, x, *, training=False, generator=None):
+def stack_apply(params, specs, x, *, speaker_embed_btc=None, training=False,
+                generator=None):
     for p, s in zip(params, specs):
-        x = spec_apply(p, s, x, training=training, generator=generator)
+        x = spec_apply(p, s, x, speaker_embed_btc=speaker_embed_btc,
+                       training=training, generator=generator)
     return x
 
 
@@ -138,7 +158,7 @@ def buffer_len(spec: ConvSpec) -> int:
 
 def spec_init_state(spec: ConvSpec, batch: int, device=None):
     """Ring buffer for one layer (None if stateless)."""
-    if spec.kind == "glu" and spec.kernel_size > 1:
+    if spec.kind in ("glu", "highway") and spec.kernel_size > 1:
         return torch.zeros(batch, buffer_len(spec), spec.in_channels,
                            device=device)
     return None
@@ -161,9 +181,9 @@ def _conv_step(conv_params, buf, x, spec):
     return new_buf, y + conv_params["b"]
 
 
-def spec_step(params, spec: ConvSpec, state, x):
-    """One frame through one layer. x: (B, C). Returns (new_state, y)."""
-    _check_supported(spec)
+def spec_step(params, spec: ConvSpec, state, x, *, speaker_embed=None):
+    """One frame through one layer. x: (B, C); speaker_embed: (B, D) or
+    None. Returns (new_state, y)."""
     if spec.kind in ("conv1x1", "conv"):
         w = core.conv1d_weight(params["conv"])
         return state, _activate(x @ w[0] + params["conv"]["b"],
@@ -171,12 +191,12 @@ def spec_step(params, spec: ConvSpec, state, x):
     if spec.kind == "convT":
         raise ValueError("convT has no incremental path (converter is offline)")
     state, y = _conv_step(params["conv"], state, x, spec)
-    return state, _gate(spec, y, x)
+    return state, _gate(params, spec, y, x, speaker_embed)
 
 
-def stack_step(params, specs, states, x):
+def stack_step(params, specs, states, x, *, speaker_embed=None):
     new_states = []
     for p, s, st in zip(params, specs, states):
-        st, x = spec_step(p, s, st, x)
+        st, x = spec_step(p, s, st, x, speaker_embed=speaker_embed)
         new_states.append(st)
     return new_states, x

@@ -4,7 +4,8 @@ deepvoice3_pytorch_tpu/ops/fused_decode.py.
 
 `fused_decode` dispatches on the device of its tensors:
   * CPU  -> `fused_decode_plain`: the same host loop over `PlainDecoder`,
-    the eager `make_decoder_step`;
+    the decoder family's eager `make_decoder_step` (models/deepvoice3.py
+    or models/nyanko.py);
   * CUDA -> the hand-written kernel `csrc/fused_decode.cu`, driven chunk by
     chunk from the host through `FusedDecoder`; nothing falls back.
 
@@ -29,6 +30,7 @@ import torch
 
 from .. import _build
 from ..models import deepvoice3 as dv3
+from ..models import nyanko as nk
 from ..models.decode import chunk_latch
 from . import core
 
@@ -36,9 +38,11 @@ MASK = -1.0e9
 DEFAULT_CHUNK = 32
 
 OP_WORDS = 10
-OP_LINEAR, OP_GLU, OP_ATTN, OP_SAVE_RES, OP_RESIDUAL = range(5)
+(OP_LINEAR, OP_GLU, OP_ATTN, OP_SAVE_RES, OP_RESIDUAL, OP_HIGHWAY,
+ OP_LINEAR2, OP_SAVE_Q) = range(8)
 _ACT = {None: 0, "relu": 1, "sigmoid": 2}
 _THREADS = 512          # csrc/fused_decode.cu:NT
+BUF_WORDS = 5           # csrc/fused_decode.cu:BUF_WORDS
 
 
 class FusedDecodeOut(NamedTuple):
@@ -56,6 +60,19 @@ class DecodeCarry(NamedTuple):
     ring: Any             # (B, ring_floats) f32, ring buffers in logical order
 
 
+def family(cfg):
+    """The model module of a decoder config: models.nyanko or
+    models.deepvoice3."""
+    return nk if isinstance(cfg, nk.NyankoDecoderConfig) else dv3
+
+
+def state_dim(cfg):
+    """Width of the decoder state (the input of last_conv)."""
+    if family(cfg) is nk:
+        return cfg.channels
+    return cfg.convolutions[0][0]
+
+
 # ---------------------------------------------------------------------------
 # plan: op table + packed folded weights
 # ---------------------------------------------------------------------------
@@ -68,6 +85,7 @@ class Plan(NamedTuple):
     last: tuple           # (w offset, b offset) of last_conv
     fc: tuple             # (w offset, b offset) of fc
     n_att: int
+    sp_widths: tuple      # cout of each speaker-bias slot (multi-speaker GLU)
     act_dim: int          # widest activation vector
     cat_dim: int          # widest concatenated tap vector (kw * cin)
 
@@ -77,15 +95,23 @@ def build_plan(params, cfg):
 
     Ops, as OP_WORDS ints each:
       LINEAR   act, K, N, w, b                 x <- act(x @ W + b)
-      GLU      kw, dil, residual, buf, cin, cout, w, b
-                                               causal GLU conv vs ring buf
+      GLU      kw, dil, residual, buf, cin, cout, w, b, speaker slot (-1
+               none)                           causal GLU conv vs ring buf
+      HIGHWAY  kw, dil, buf, glu, width, w, b  causal highway conv
       ATTN     layer, monotonic, back, ahead, wq, bq, wo, bo
       SAVE_RES / RESIDUAL                      outer residual * sqrt(1/2)
+      SAVE_Q                                   keep x as Q (nyanko)
+      LINEAR2  act, K, N, w_top, w_bot, b      x <- act(x @ W_top
+                                               + Q @ W_bot + b)
+    Dispatches on the config's family, as the JAX build_plan does: the
+    DeepVoice3 prenet / conv+attention stack, or nyanko's audio encoder /
+    attention / audio decoder.
     """
     chunks, offset = [], [0]
     ops, buffers = [], []
-    dims = [cfg.in_dim * cfg.r]
+    dims = [cfg.in_dim * cfg.r, state_dim(cfg)]
     cat_dim = [1]
+    sp_widths = []
 
     def push(t):
         flat = t.reshape(-1).float()
@@ -100,10 +126,10 @@ def build_plan(params, cfg):
     def op(*words):
         ops.append(list(words) + [0] * (OP_WORDS - len(words)))
 
-    def glu(p, s, residual):
-        if s.speaker_proj:
-            raise NotImplementedError("speaker biases are not ported yet")
-        w = core.conv1d_weight(p["conv"])          # (kw, cin, 2*cout)
+    def conv(p, s):
+        """Folded (kw, cin, 2*cout) weights and the layer's ring buffer
+        (-1 for kw = 1)."""
+        w = core.conv1d_weight(p["conv"])
         buf = -1
         if s.kernel_size > 1:
             rows = (s.kernel_size - 1) * s.dilation
@@ -112,36 +138,83 @@ def build_plan(params, cfg):
             buf = len(buffers) - 1
         dims.extend([s.in_channels, 2 * s.out_channels])
         cat_dim[0] = max(cat_dim[0], s.kernel_size * s.in_channels)
+        return w, buf
+
+    def linear(p, s):
+        w = core.conv1d_weight(p["conv"])[0]
+        dims.extend(w.shape)
+        op(OP_LINEAR, _ACT[s.activation], w.shape[0], w.shape[1], push(w),
+           push(p["conv"]["b"]))
+
+    def glu(p, s, residual):
+        w, buf = conv(p, s)
+        slot = -1
+        if s.speaker_proj:
+            slot = len(sp_widths)
+            sp_widths.append(s.out_channels)
         op(OP_GLU, s.kernel_size, s.dilation, int(residual), buf,
-           s.in_channels, s.out_channels, push(w), push(p["conv"]["b"]))
+           s.in_channels, s.out_channels, push(w), push(p["conv"]["b"]), slot)
 
-    for p, s in zip(params["prenet"], cfg.prenet_specs):
-        if s.kind == "conv1x1":
-            w = core.conv1d_weight(p["conv"])[0]
-            dims.extend(w.shape)
-            op(OP_LINEAR, _ACT[s.activation], w.shape[0], w.shape[1],
-               push(w), push(p["conv"]["b"]))
-        elif s.kind == "glu":
-            glu(p, s, s.residual)
-        else:
-            raise NotImplementedError("fused decode: spec kind %s" % s.kind)
+    def highway(p, s):
+        if s.in_channels != s.out_channels:
+            raise ValueError("fused decode: a highway layer keeps its width "
+                             "(%d -> %d)" % (s.in_channels, s.out_channels))
+        w, buf = conv(p, s)
+        op(OP_HIGHWAY, s.kernel_size, s.dilation, buf, int(s.highway_glu),
+           s.in_channels, push(w), push(p["conv"]["b"]))
 
-    n_att = 0
-    for idx, (p, s, p_attn, a_spec) in enumerate(zip(
-            params["convs"], cfg.conv_specs, params["attention"],
-            cfg.attention_specs)):
-        op(OP_SAVE_RES)
-        glu(p, s, False)
-        if a_spec is not None:
-            wq = core.linear_weight(p_attn["query_proj"])
-            wo = core.linear_weight(p_attn["out_proj"])
-            dims.extend(wq.shape)
-            op(OP_ATTN, n_att, int(cfg.force_monotonic_attention[idx]),
-               a_spec.window_backward, a_spec.window_ahead,
-               push(wq), push(p_attn["query_proj"]["b"]),
-               push(wo), push(p_attn["out_proj"]["b"]))
-            n_att += 1
-        op(OP_RESIDUAL)
+    def attn(p_attn, idx, monotonic, spec):
+        wq = core.linear_weight(p_attn["query_proj"])
+        wo = core.linear_weight(p_attn["out_proj"])
+        dims.extend(wq.shape)
+        op(OP_ATTN, idx, int(monotonic), spec.window_backward,
+           spec.window_ahead, push(wq), push(p_attn["query_proj"]["b"]),
+           push(wo), push(p_attn["out_proj"]["b"]))
+
+    def stack(plist, specs):
+        for p, s in zip(plist, specs):
+            if s.kind == "conv1x1":
+                linear(p, s)
+            elif s.kind == "glu":
+                glu(p, s, s.residual)
+            elif s.kind == "highway":
+                highway(p, s)
+            else:
+                raise ValueError("fused decode: spec kind %s" % s.kind)
+
+    if family(cfg) is nk:
+        stack(params["audio_encoder"], cfg.audio_encoder)
+        op(OP_SAVE_Q)
+        attn(params["attention"], 0, cfg.force_monotonic_attention,
+             cfg.attention_spec)
+        n_att = 1
+        # the first audio-decoder layer takes concat([R, Q]): its (2D -> D)
+        # weight is split into the R and Q halves
+        s0 = cfg.audio_decoder[0]
+        if s0.kind != "conv1x1":
+            raise ValueError("fused decode: nyanko's audio decoder must "
+                             "start with a 1x1 conv")
+        p0 = params["audio_decoder"][0]
+        w = core.conv1d_weight(p0["conv"])[0]           # (2D, D)
+        D = w.shape[0] // 2
+        dims.extend(w.shape)
+        op(OP_LINEAR2, _ACT[s0.activation], D, w.shape[1], push(w[:D]),
+           push(w[D:]), push(p0["conv"]["b"]))
+        stack(params["audio_decoder"][1:], cfg.audio_decoder[1:])
+    else:
+        stack(params["prenet"], cfg.prenet_specs)
+        n_att = 0
+        for idx, (p, s, p_attn, a_spec) in enumerate(zip(
+                params["convs"], cfg.conv_specs,
+                dv3.attention_params(params, cfg),
+                cfg.attention_specs)):
+            op(OP_SAVE_RES)
+            glu(p, s, False)
+            if a_spec is not None:
+                attn(p_attn, n_att, cfg.force_monotonic_attention[idx],
+                     a_spec)
+                n_att += 1
+            op(OP_RESIDUAL)
 
     w_last = core.conv1d_weight(params["last_conv"])[0]
     last = (push(w_last), push(params["last_conv"]["b"]))
@@ -149,7 +222,47 @@ def build_plan(params, cfg):
     device = w_last.device
     return Plan(torch.tensor(ops, dtype=torch.int32, device=device),
                 tuple(buffers), torch.cat(chunks).contiguous(), last, fc,
-                n_att, max(dims + list(w_last.shape)), cat_dim[0])
+                n_att, tuple(sp_widths), max(dims + list(w_last.shape)),
+                cat_dim[0])
+
+
+# ---------------------------------------------------------------------------
+# shared-memory budget and ring placement
+# ---------------------------------------------------------------------------
+
+
+def _round4(n):
+    return (n + 3) & ~3
+
+
+def smem_floats(act_dim, cat_dim, C, E, Tk, n_buf, n_la, ring_smem=0):
+    """Floats of dynamic shared memory one block of the kernel takes: the
+    mirror of csrc/fused_decode.cu:layout (FusedDecoder checks the two
+    agree)."""
+    return (_round4(ring_smem) + 3 * _round4(act_dim) + _round4(cat_dim)
+            + 4 * _round4(C) + 2 * _round4(E) + 2 * _round4(Tk)
+            + 4 * _THREADS + 64 + _round4(n_buf + n_la))
+
+
+def place_rings(buffers, budget_floats):
+    """Where each ring buffer lives, given `budget_floats` of shared memory
+    for them: the smallest first (every step reads kw taps of a buffer
+    whatever its length, so the long dilated ones are the ones to move),
+    the rest in a per-row scratch in device memory. Returns
+    (((offset in its place, in shared memory), ...) in buffer order,
+    shared floats, scratch floats)."""
+    placed = [None] * len(buffers)
+    smem = scratch = 0
+    for i in sorted(range(len(buffers)),
+                    key=lambda i: (buffers[i][0] * buffers[i][1], i)):
+        size = _round4(buffers[i][0] * buffers[i][1])
+        if smem + size <= budget_floats:
+            placed[i] = (smem, 1)
+            smem += size
+        else:
+            placed[i] = (scratch, 0)
+            scratch += size
+    return tuple(placed), smem, scratch
 
 
 # ---------------------------------------------------------------------------
@@ -160,18 +273,21 @@ def build_plan(params, cfg):
 class _Args(ctypes.Structure):
     """Mirror of FusedDecodeArgs in csrc/fused_decode.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "ops", "bufs", "weights", "fpe", "wq", "addmask", "kv", "prev", "la",
-        "ring", "out", "align", "done", "dstate")]
+        "ops", "bufs", "weights", "fpe", "wq", "addmask", "kv", "sp", "prev",
+        "la", "ring", "scratch", "out", "align", "done", "dstate")]
         + [(n, ctypes.c_int) for n in (
             "n_ops", "n_buf", "B", "Tk", "E", "C", "out_dim", "n_att", "n_la",
-            "ring_floats", "T_total", "t0", "steps", "last_w", "last_b",
-            "fc_w", "fc_b", "act_dim", "cat_dim")]
+            "ring_floats", "ring_smem_floats", "scratch_floats", "sp_width",
+            "fpe_raw", "T_total", "t0", "steps", "last_w", "last_b", "fc_w",
+            "fc_b", "act_dim", "cat_dim")]
         + [("ctx_scale", ctypes.c_float)])
 
 
 KERNEL = _build.Kernel("fused_decode.cu", {
     "dv3_fused_decode": [ctypes.POINTER(_Args), ctypes.c_void_p,
                          ctypes.c_int],
+    "dv3_fused_decode_smem_bytes": [ctypes.POINTER(_Args)],
+    "dv3_fused_decode_max_smem": [ctypes.c_int],
 })
 
 
@@ -182,6 +298,10 @@ def _check(t, name, shape, dtype, device):
                          "shape %s on %s (got %s %s %s, contiguous=%s)"
                          % (name, dtype, tuple(shape), device, t.dtype,
                             tuple(t.shape), t.device, t.is_contiguous()))
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
 
 
 class _Decoder:
@@ -200,48 +320,98 @@ class _Decoder:
 class FusedDecoder(_Decoder):
     """Launch-invariant state of one decode on the card: the plan with
     folded weights, the stacked projected K/V, the additive mask, the query
-    position rates and the raw query-position angles of frames 1..n_steps
-    (clamped to the table's last row, as `sinusoidal_encoding` clamps)."""
+    position rows of frames 1..n_steps (`inputs["fpe_table"]`, its last row
+    repeated past its end; raw angles with per-row rates when
+    `inputs["fpe_raw"]`, else finished encodings), the speaker biases as
+    one (n_sp, B, width) tensor (zeros when a multi-speaker model decodes
+    without a speaker, as the plain step then adds none), and the ring
+    placement: the buffers that
+    fit under `smem_budget` bytes of shared memory (default: the device's
+    limit per block) stay there, the rest go to a per-row scratch in device
+    memory. A plan whose fixed part alone exceeds the budget raises."""
 
-    def __init__(self, params, cfg, inputs, mask, n_steps):
+    def __init__(self, params, cfg, inputs, mask, n_steps, smem_budget=None):
         kv = [p for p in inputs["projected_kv"] if p is not None]
         keys0 = kv[0][0]
-        self.device = keys0.device
+        self.device = dev = keys0.device
         if self.device.type != "cuda":
             raise ValueError("FusedDecoder runs on CUDA tensors only (got %s)"
                              % self.device)
-        self.plan = build_plan(params, cfg)
-        if self.plan.n_att != len(kv):
-            raise ValueError("need %d K/V pairs, got %d"
-                             % (self.plan.n_att, len(kv)))
+        f32 = torch.float32
+        self.plan = p = build_plan(params, cfg)
+        if p.n_att != len(kv):
+            raise ValueError("need %d K/V pairs, got %d" % (p.n_att, len(kv)))
         self.B, self.tk, self.E = keys0.shape
-        self.C = cfg.convolutions[0][0]
+        self.C = state_dim(cfg)
         self.out_dim = cfg.in_dim * cfg.r
-        self.dtype = torch.float32
-        self.n_la = max(self.plan.n_att, 1)
-        self.ring_floats = sum(r * c for r, c, _ in self.plan.buffers)
-        if self.plan.act_dim > 4 * _THREADS:
+        self.dtype = f32
+        self.n_la = max(p.n_att, 1)
+        self.ring_floats = sum(r * c for r, c, _ in p.buffers)
+        if p.act_dim > 4 * _THREADS:
             raise ValueError("fused_decode: widths above %d are not supported"
                              % (4 * _THREADS))
         self.kv = torch.stack([torch.stack([k, v]) for k, v in kv]) \
             .float().contiguous()
         self.addmask = (torch.where(mask, MASK, 0.0).float().contiguous()
                         if mask is not None
-                        else torch.zeros(self.B, self.tk, device=self.device))
-        self.wq = inputs["w_query"].float().contiguous()
-        table = params["embed_query_positions"]["w"]
-        steps = torch.arange(1, n_steps + 1, device=self.device)
-        self.fpe = table[steps.clamp(max=table.shape[0] - 1)].float() \
-            .contiguous()
-        self.bufs = torch.tensor([list(b) for b in self.plan.buffers] or
-                                 [[0, 0, 0]], dtype=torch.int32,
-                                 device=self.device)
-        f32 = torch.float32
-        _check(self.kv, "kv", (self.plan.n_att, 2, self.B, self.tk, self.E),
-               f32, self.device)
-        _check(self.wq, "w_query", (self.B,), f32, self.device)
-        _check(self.fpe, "fpe_table", (self.fpe.shape[0], self.C), f32,
-               self.device)
+                        else torch.zeros(self.B, self.tk, device=dev))
+        self.fpe_raw = bool(inputs["fpe_raw"])
+        self.wq = (inputs["w_query"].float().contiguous() if self.fpe_raw
+                   else None)
+        table = inputs["fpe_table"].float()
+        if table.shape[0] < n_steps:
+            table = torch.cat([table, table[-1:].expand(
+                n_steps - table.shape[0], -1)])
+        self.fpe = table[:n_steps].contiguous()
+        bias = inputs.get("speaker_bias") or []
+        if bias and len(bias) != len(p.sp_widths):
+            raise ValueError("need %d speaker-bias arrays, got %d"
+                             % (len(p.sp_widths), len(bias)))
+        self.sp_width = max(p.sp_widths or (0,))
+        self.sp = None
+        if p.sp_widths:
+            self.sp = torch.zeros(len(p.sp_widths), self.B, self.sp_width,
+                                  device=dev)
+            for i, (b, w) in enumerate(zip(bias, p.sp_widths)):
+                _check(b.float().contiguous(), "speaker_bias[%d]" % i,
+                       (self.B, w), f32, dev)
+                self.sp[i, :, :w] = b
+        if self.fpe_raw:
+            _check(self.wq, "w_query", (self.B,), f32, dev)
+        _check(self.kv, "kv", (p.n_att, 2, self.B, self.tk, self.E), f32,
+               dev)
+        _check(self.fpe, "fpe_table", (n_steps, self.C), f32, dev)
+
+        # ring placement under the shared-memory budget
+        lib = KERNEL.lib
+        if smem_budget is None:
+            smem_budget = lib.dv3_fused_decode_max_smem(dev.index or 0)
+            if smem_budget <= 0:
+                KERNEL.check(-smem_budget, "shared memory per block")
+        fixed = smem_floats(p.act_dim, p.cat_dim, self.C, self.E, self.tk,
+                            len(p.buffers), self.n_la)
+        if 4 * fixed > smem_budget:
+            raise ValueError(
+                "fused_decode: the plan needs %d bytes of shared memory "
+                "besides its ring buffers, more than the %d bytes a block "
+                "may have" % (4 * fixed, smem_budget))
+        placed, self.ring_smem, self.scratch_floats = place_rings(
+            p.buffers, smem_budget // 4 - fixed)
+        self.bufs = torch.tensor(
+            [[r, c, off, loc, sm] for (r, c, off), (loc, sm)
+             in zip(p.buffers, placed)] or [[0] * BUF_WORDS],
+            dtype=torch.int32, device=dev)
+        self.scratch = (torch.empty(self.B, self.scratch_floats, device=dev)
+                        if self.scratch_floats else None)
+        want = 4 * (fixed + self.ring_smem)
+        got = lib.dv3_fused_decode_smem_bytes(ctypes.byref(_Args(
+            n_buf=len(p.buffers), Tk=self.tk, E=self.E, C=self.C,
+            n_la=self.n_la, ring_smem_floats=self.ring_smem,
+            act_dim=p.act_dim, cat_dim=p.cat_dim)))
+        if got != want:
+            raise RuntimeError("fused_decode: the kernel's shared-memory "
+                               "layout (%d bytes) differs from the host's "
+                               "(%d)" % (got, want))
 
     def zero_carry(self, initial_input):
         return DecodeCarry(
@@ -252,6 +422,23 @@ class FusedDecoder(_Decoder):
 
     def last_attended(self, carry):
         return carry.last_attended[:, :self.plan.n_att]
+
+    def _args(self, carry, outputs, t0, steps):
+        out, align, done, dstate = outputs
+        p = self.plan
+        return _Args(
+            p.ops.data_ptr(), self.bufs.data_ptr(), p.weights.data_ptr(),
+            self.fpe.data_ptr(), _ptr(self.wq), self.addmask.data_ptr(),
+            self.kv.data_ptr(), _ptr(self.sp), carry.prev.data_ptr(),
+            carry.last_attended.data_ptr(), carry.ring.data_ptr(),
+            _ptr(self.scratch), out.data_ptr(), align.data_ptr(),
+            done.data_ptr(), dstate.data_ptr(),
+            p.ops.shape[0], len(p.buffers), self.B, self.tk, self.E, self.C,
+            self.out_dim, p.n_att, self.n_la, self.ring_floats,
+            self.ring_smem, self.scratch_floats, self.sp_width,
+            int(self.fpe_raw), out.shape[1], t0, steps, p.last[0], p.last[1],
+            p.fc[0], p.fc[1], p.act_dim, p.cat_dim,
+            self.tk * math.sqrt(1.0 / self.tk))
 
     def launch(self, carry, outputs, t0, steps):
         """Run frames t0 .. t0+steps-1 from `carry`: writes them into
@@ -271,29 +458,18 @@ class FusedDecoder(_Decoder):
         _check(align, "alignments", (self.B, total, self.tk), f32, dev)
         _check(done, "done", (self.B, total), f32, dev)
         _check(dstate, "decoder_states", (self.B, total, self.C), f32, dev)
-        p = self.plan
-        args = _Args(
-            p.ops.data_ptr(), self.bufs.data_ptr(), p.weights.data_ptr(),
-            self.fpe.data_ptr(), self.wq.data_ptr(), self.addmask.data_ptr(),
-            self.kv.data_ptr(), carry.prev.data_ptr(),
-            carry.last_attended.data_ptr(), carry.ring.data_ptr(),
-            out.data_ptr(), align.data_ptr(), done.data_ptr(),
-            dstate.data_ptr(),
-            p.ops.shape[0], len(p.buffers), self.B, self.tk, self.E, self.C,
-            self.out_dim, p.n_att, self.n_la, self.ring_floats, total, t0,
-            steps, p.last[0], p.last[1], p.fc[0], p.fc[1], p.act_dim,
-            p.cat_dim, self.tk * math.sqrt(1.0 / self.tk))
-        lib = KERNEL.lib
+        args = self._args(carry, outputs, t0, steps)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.dv3_fused_decode(ctypes.byref(args), stream, dev.index or 0)
+        rc = KERNEL.lib.dv3_fused_decode(ctypes.byref(args), stream,
+                                         dev.index or 0)
         KERNEL.launches += 1
         KERNEL.check(rc, "fused_decode launch")
 
 
 class PlainDecoder(_Decoder):
-    """`FusedDecoder`'s launch-and-carry interface over the plain step
-    (`make_decoder_step`): the plain version of kernel B1, which CPU tensors
-    take, so that a caller that drives a decode chunk by chunk
+    """`FusedDecoder`'s launch-and-carry interface over the plain step (the
+    family's `make_decoder_step`): the plain version of kernel B1, which CPU
+    tensors take, so that a caller that drives a decode chunk by chunk
     (streaming.tts_stream) is one piece of code on both devices. It runs in
     the dtype of the inputs. The carry is a dict: the previous frame and
     the step state (ring buffers, last_attended, frame index); `launch`
@@ -303,20 +479,22 @@ class PlainDecoder(_Decoder):
         keys0 = next(p for p in inputs["projected_kv"] if p is not None)[0]
         self.B, self.tk = keys0.shape[:2]
         self.device, self.dtype = keys0.device, keys0.dtype
-        self.C = cfg.convolutions[0][0]
+        self.C = state_dim(cfg)
         self.out_dim = cfg.in_dim * cfg.r
         self.cfg = cfg
+        self.fam = family(cfg)
         self.n_steps = n_steps
-        self.att = [i for i, s in enumerate(cfg.attention_specs)
-                    if s is not None]
-        self.step_fn = dv3.make_decoder_step(params, cfg,
-                                             inputs["projected_kv"],
-                                             inputs["w_query"], mask=mask)
+        self.att = ([0] if self.fam is nk else
+                    [i for i, s in enumerate(cfg.attention_specs)
+                     if s is not None])
+        self.step_fn = self.fam.make_decoder_step(
+            params, cfg, inputs["projected_kv"], inputs["w_query"],
+            speaker_embed=inputs.get("speaker_embed"), mask=mask)
 
     def zero_carry(self, initial_input):
         return {"prev": initial_input.clone(),
-                "state": dv3.decoder_init_state(self.cfg, self.B,
-                                                self.device)}
+                "state": self.fam.decoder_init_state(self.cfg, self.B,
+                                                     self.device)}
 
     def last_attended(self, carry):
         return carry["state"]["last_attended"][:, self.att].to(torch.int32)
@@ -379,7 +557,7 @@ def fused_decode(params, cfg, inputs, mask, initial_input, max_steps,
                  min_steps, *, early_exit=True, chunk=DEFAULT_CHUNK):
     """Decode up to max_steps frames, `chunk` frames per launch.
 
-    inputs: `models.deepvoice3.fused_decode_inputs(...)`. mask: (B, Tk)
+    inputs: the family's `fused_decode_inputs(...)`. mask: (B, Tk)
     bool, True where padded, or None. Returns FusedDecodeOut."""
     if initial_input.device.type == "cpu":
         return fused_decode_plain(params, cfg, inputs, mask, initial_input,

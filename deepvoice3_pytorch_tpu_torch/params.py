@@ -109,16 +109,19 @@ def param_shapes(cfg):
 
 
 def _init_tree(cfg, generator):
-    from .models import deepvoice3 as dv3
+    from .ops import core
 
-    if cfg.builder != "deepvoice3" or cfg.n_speakers > 1:
-        raise NotImplementedError(
-            "only the single-speaker deepvoice3 builder is ported")
-    return {
-        "encoder": dv3.encoder_init(generator, cfg.encoder),
-        "decoder": dv3.decoder_init(generator, cfg.decoder),
-        "converter": dv3.converter_init(generator, cfg.converter),
+    fam = cfg.family
+    tree = {
+        "encoder": fam.encoder_init(generator, cfg.encoder),
+        "decoder": fam.decoder_init(generator, cfg.decoder),
+        "converter": fam.converter_init(generator, cfg.converter),
     }
+    if cfg.n_speakers > 1:
+        tree["embed_speakers"] = core.embedding_init(
+            generator, cfg.n_speakers, cfg.speaker_embed_dim, None,
+            cfg.speaker_embedding_weight_std)
+    return tree
 
 
 def model_init(cfg, generator, device="cuda"):

@@ -4,8 +4,10 @@ one utterance at a time, each streamed as chunked-transfer WAV while
 `streaming.tts_stream` produces it.
 
 Endpoints (`make_handler`):
-    GET /tts?text=...   chunked WAV: a header with unknown (0xFFFFFFFF)
-                        lengths, then 16-bit PCM chunks as they are made
+    GET /tts?text=...[&speaker_id=N]
+                        chunked WAV: a header with unknown (0xFFFFFFFF)
+                        lengths, then 16-bit PCM chunks as they are made;
+                        speaker_id picks the voice of a multi-speaker model
     GET /healthz        200 "ok"
     GET /stats          JSON: request counts, streams in flight, time to
                         first audio (last 512 requests: mean/p50/p95),

@@ -27,12 +27,12 @@ import math
 import numpy as np
 import torch
 
-from .builder import model_postnet
+from .builder import embed_speakers, model_postnet
 from .dsp import gl_cuda
 from .dsp import stft as dsp
 from .ops import core
 from .ops import fused_decode as fd
-from .synthesis import _param_device, _prepare_batch
+from .synthesis import _param_device, _prepare_batch, speaker_id_tensor
 
 CONV_BUCKET = 16      # converter window length bucket (mel frames)
 # A window's anchored start re-converges locally, so windows take at least
@@ -87,16 +87,20 @@ def converter_context(ccfg):
 # ---------------------------------------------------------------------------
 
 
-def prepare_decode(params, cfg, x, pos, lengths, max_total):
-    """Everything launch-invariant: encoder, padding mask, fused-decode
-    inputs, the decoder for the device, its zero carry and its output
-    buffers (outputs, alignments, done, decoder_states) of max_total
-    frames."""
+def prepare_decode(params, cfg, x, pos, lengths, max_total,
+                   speaker_ids=None):
+    """Everything launch-invariant: speaker embedding, encoder, padding
+    mask, fused-decode inputs (with the speaker biases), the decoder for the
+    device, its zero carry and its output buffers (outputs, alignments,
+    done, decoder_states) of max_total frames."""
     dcfg = cfg.decoder
     fam = cfg.family
-    encoder_out = fam.encoder_apply(params["encoder"], cfg.encoder, x)
+    speaker_embed = embed_speakers(params, cfg, speaker_ids)
+    encoder_out = fam.encoder_apply(params["encoder"], cfg.encoder, x,
+                                    speaker_embed=speaker_embed)
     mask = core.get_mask_from_lengths(lengths, encoder_out[0].shape[1])
-    fi = fam.fused_decode_inputs(params["decoder"], dcfg, encoder_out, pos)
+    fi = fam.fused_decode_inputs(params["decoder"], dcfg, encoder_out, pos,
+                                 max_total, speaker_embed=speaker_embed)
     dec = fd.make_decoder(params["decoder"], dcfg, fi, mask, max_total)
     init = torch.zeros(x.shape[0], dcfg.in_dim * dcfg.r, device=x.device)
     return dec, dec.zero_carry(init), dec.new_outputs(max_total)
@@ -285,12 +289,14 @@ class StreamEmitter:
 
     feed_async(pin) dispatches the emission that new frames make valid
     (device work only), feed_finish(token) completes it; finish() emits the
-    held-back converter lookahead and the vocoder tail."""
+    held-back converter lookahead and the vocoder tail. speaker_ids (B,):
+    the converter window's speakers, for a multi-speaker model."""
 
-    def __init__(self, params, cfg, ap, *, gl_context=16, gl_lookahead=8,
-                 xfade=None):
+    def __init__(self, params, cfg, ap, speaker_ids=None, *, gl_context=16,
+                 gl_lookahead=8, xfade=None):
         self.params = params
         self.cfg = cfg
+        self.speaker_ids = speaker_ids
         self.up = cfg.converter.time_upsampling
         self.ctx_l, self.ctx_r = converter_context(cfg.converter)
         self.vocoder = StreamingVocoder(ap, gl_context=gl_context,
@@ -309,7 +315,8 @@ class StreamEmitter:
         Wb = min(self.M, -(-W // CONV_BUCKET) * CONV_BUCKET)
         ws = self.M - Wb
         lin_win = model_postnet(self.params, self.cfg,
-                                self.mel_hist[:, ws:self.M])
+                                self.mel_hist[:, ws:self.M],
+                                speaker_ids=self.speaker_ids)
         return lin_win[:, (self.e_m - ws) * self.up:(emit_to_m - ws) * self.up]
 
     def feed_async(self, pin):
@@ -381,14 +388,13 @@ def tts_stream(params, cfg, ap, frontend_mod, texts, *, speaker_ids=None,
     The decoder runs `first_chunk` frames in the first launch, then `chunk`
     (default ops/fused_decode.DEFAULT_CHUNK) per launch, and stops at the
     done-latch rule (done > 0.5 after min_decoder_steps) at chunk
-    granularity."""
-    if speaker_ids is not None:
-        raise NotImplementedError("multi-speaker streaming is not ported yet")
+    granularity. speaker_ids: one id per text for a multi-speaker model."""
     if chunk is None:
         chunk = fd.DEFAULT_CHUNK
     device = _param_device(params)
     x, pos, lengths = (torch.from_numpy(a).to(device)
                        for a in _prepare_batch(frontend_mod, texts, p, pad_to))
+    spk = speaker_id_tensor(cfg, speaker_ids, device)
     B = x.shape[0]
     dcfg = cfg.decoder
     r = dcfg.r
@@ -404,8 +410,8 @@ def tts_stream(params, cfg, ap, frontend_mod, texts, *, speaker_ids=None,
     max_total = sum(schedule)
 
     dec, carry, outputs = prepare_decode(params, cfg, x, pos, lengths,
-                                         max_total)
-    emitter = StreamEmitter(params, cfg, ap, gl_context=gl_context,
+                                         max_total, speaker_ids=spk)
+    emitter = StreamEmitter(params, cfg, ap, spk, gl_context=gl_context,
                             gl_lookahead=gl_lookahead, xfade=xfade)
 
     done_rows = []         # host (B, steps) per chunk

@@ -47,21 +47,35 @@ def _param_device(params):
     return next(iter(params.parameters())).device
 
 
+def speaker_id_tensor(cfg, speaker_ids, device):
+    """A list or array of speaker ids -> (B,) int64 tensor on `device`, or
+    None. Ids come from callers (an HTTP request's speaker_id among them),
+    so they are checked here, on the host: an id out of range would index
+    the speaker table out of bounds on the card."""
+    if speaker_ids is None:
+        return None
+    ids = np.asarray(speaker_ids, np.int64).reshape(-1)
+    if ids.size and (ids.min() < 0 or ids.max() >= cfg.n_speakers):
+        raise ValueError("speaker ids %s out of range for %d speaker(s)"
+                         % (ids.tolist(), cfg.n_speakers))
+    return torch.as_tensor(ids, device=device)
+
+
 @torch.inference_mode()
 def tts_batch(params, cfg, ap: AudioProcessor, frontend_mod, texts, *,
               p=0.0, speaker_ids=None, max_decoder_steps=500,
               early_exit=True, pad_to=8):
     """Batched text -> waveform. Returns a list of per-utterance dicts with
     waveform / mel / linear / alignment (numpy, trimmed to the decoded
-    lengths) and num_decoder_steps. Runs where `params` live."""
-    if speaker_ids is not None:
-        raise NotImplementedError("multi-speaker synthesis is not ported yet")
+    lengths) and num_decoder_steps. Runs where `params` live.
+    speaker_ids: one id per text for a multi-speaker model, else None."""
     device = _param_device(params)
     x, pos, lengths = (torch.from_numpy(a).to(device)
                        for a in _prepare_batch(frontend_mod, texts, p, pad_to))
+    spk = speaker_id_tensor(cfg, speaker_ids, device)
 
     mel, pin, align, done, dec_lengths = model_decode(
-        params, cfg, x, pos, input_lengths=lengths,
+        params, cfg, x, pos, speaker_ids=spk, input_lengths=lengths,
         max_decoder_steps=max_decoder_steps, early_exit=early_exit)
 
     # trim the postnet input to the batch's longest decoded length before
@@ -70,7 +84,8 @@ def tts_batch(params, cfg, ap: AudioProcessor, frontend_mod, texts, *,
     n_bucket = min(max_decoder_steps,
                    _round_up(int(dec_lengths.max()) + SLACK_DEC_STEPS,
                              BUCKET_DEC_STEPS))
-    linear = model_postnet(params, cfg, pin[:, :n_bucket * cfg.r])
+    linear = model_postnet(params, cfg, pin[:, :n_bucket * cfg.r],
+                           speaker_ids=spk)
     wav_batch = ap.inv_spectrogram_device(linear).cpu().numpy()
     mel = ap._denormalize(mel).cpu().numpy()
     linear = ap._denormalize(linear).cpu().numpy()

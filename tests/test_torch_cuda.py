@@ -2,7 +2,10 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small shapes that reach the cases chip_smoke.py does not: chunk hand-off
 of the decode carry across launches, non-monotonic attention, no mask,
-long padded texts, tile edges of the Griffin-Lim GEMMs, its streaming
+long padded texts, the nyanko and multi-speaker decoders (highway,
+save_q / linear2, speaker biases, finished position encodings), ring
+buffers placed in device memory under a small shared-memory budget and at
+the nyanko preset's width, tile edges of the Griffin-Lim GEMMs, its streaming
 modes (given start, pinned frames, returned spectrum) and unfolded
 windows, a tiny model's stream on the card against the CPU, and the ragged
 edges of the tap-accumulating conv (T, C, N off the tiles, B = 1, taps
@@ -14,6 +17,7 @@ with a card (the JAX package need not be installed):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -91,6 +95,149 @@ def test_fused_decode_kernel_long_text(dev):
     args = (pd, cfg.decoder, fi, mask, torch.zeros(2, 16, device=dev), 9, 2)
     _close(fd.fused_decode(*args, early_exit=False),
            fd.fused_decode_plain(*args, early_exit=False), 1e-4)
+
+
+def _family_decoder(dev, name, width=32, B=3, Tk=12, seed=0, speakers=True):
+    """A tiny nyanko or multi-speaker decoder with random encoder outputs;
+    (cfg, decoder params, fused_decode_inputs, lengths)."""
+    kw = dict(n_vocab=149, embed_dim=width, mel_dim=16, linear_dim=65, r=1,
+              downsample_step=4, kernel_size=3, encoder_channels=width,
+              decoder_channels=width, converter_channels=width,
+              use_memory_mask=True, max_positions=64,
+              force_monotonic_attention=True)
+    if name == "deepvoice3_multispeaker":
+        kw.update(n_speakers=5, speaker_embed_dim=8, key_projection=True,
+                  value_projection=True, query_position_rate=2.0,
+                  key_position_rate=7.6)
+    cfg = getattr(builder, name)(**kw)
+    params = builder.model_init(cfg, torch.Generator().manual_seed(seed), dev)
+    g = torch.Generator().manual_seed(seed + 1)
+    enc = tuple(torch.randn(B, Tk, width, generator=g).to(dev) * 0.5
+                for _ in range(2))
+    lengths = torch.randint(Tk // 2, Tk + 1, (B,), generator=g).to(dev)
+    pos = torch.arange(1, Tk + 1, device=dev)[None].repeat(B, 1)
+    pos = torch.where(pos <= lengths[:, None], pos, torch.zeros_like(pos))
+    se = None
+    if cfg.n_speakers > 1 and speakers:
+        ids = torch.arange(B, device=dev) % cfg.n_speakers
+        se = builder.embed_speakers(params, cfg, ids)
+    fi = cfg.family.fused_decode_inputs(params["decoder"], cfg.decoder, enc,
+                                        pos, speaker_embed=se)
+    return cfg, params["decoder"], fi, lengths
+
+
+@pytest.mark.parametrize("name,chunk,masked,speakers", [
+    ("nyanko", 32, True, True), ("nyanko", 3, True, True),
+    ("nyanko", 4, False, True),
+    ("deepvoice3_multispeaker", 32, True, True),
+    ("deepvoice3_multispeaker", 3, True, True),
+    ("deepvoice3_multispeaker", 4, True, False)])
+def test_fused_decode_families_match_plain(dev, name, chunk, masked,
+                                           speakers):
+    """nyanko (highway, save_q, linear2, finished position encodings) and
+    the multi-speaker decoder (speaker biases, per-sample query rates; and
+    without a speaker, zero biases as the plain step adds none), with the
+    carry handed across chunks of 3 and 4."""
+    cfg, pd, fi, lengths = _family_decoder(dev, name, speakers=speakers)
+    mask = core.get_mask_from_lengths(lengths, 12) if masked else None
+    args = (pd, cfg.decoder, fi, mask, torch.zeros(3, 16, device=dev), 11, 2)
+    fd.KERNEL.launches = 0
+    got = fd.fused_decode(*args, early_exit=False, chunk=chunk)
+    assert fd.KERNEL.launches == -(-11 // min(chunk, 11))
+    _close(got, fd.fused_decode_plain(*args, early_exit=False, chunk=chunk),
+           1e-4)
+
+
+@pytest.mark.parametrize("name", ["nyanko", "deepvoice3_multispeaker"])
+def test_fused_decode_ring_placement_in_device_memory(dev, name):
+    """Ring buffers placed in the per-row scratch (a budget that holds half
+    of them, and one that holds none) give the very same frames and carry
+    as all of them in shared memory, over a carry hand-off; a budget below
+    the plan's fixed part raises."""
+    cfg, pd, fi, lengths = _family_decoder(dev, name)
+    mask = core.get_mask_from_lengths(lengths, 12)
+    init = torch.zeros(3, 16, device=dev)
+    full = fd.FusedDecoder(pd, cfg.decoder, fi, mask, 10)
+    assert full.scratch_floats == 0
+    p = full.plan
+    fixed = fd.smem_floats(p.act_dim, p.cat_dim, full.C, full.E, full.tk,
+                           len(p.buffers), full.n_la)
+    runs = []
+    for ring_budget in (None, full.ring_floats // 2, 0):
+        dec = full if ring_budget is None else fd.FusedDecoder(
+            pd, cfg.decoder, fi, mask, 10,
+            smem_budget=4 * (fixed + ring_budget))
+        if ring_budget == 0:
+            assert dec.ring_smem == 0
+        if ring_budget:
+            assert 0 < dec.scratch_floats < dec.ring_floats
+        carry, outs = dec.zero_carry(init), dec.new_outputs(10)
+        dec.launch(carry, outs, 0, 6)
+        dec.launch(carry, outs, 6, 4)
+        runs.append(outs + tuple(carry))
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        fd.FusedDecoder(pd, cfg.decoder, fi, mask, 10,
+                        smem_budget=4 * fixed - 4)
+
+
+@pytest.mark.parametrize("preset,off_chip", [
+    ("nyanko_ljspeech", True), ("deepvoice3_vctk", False),
+    ("deepvoice3_ljspeech", False)])
+def test_fused_decode_preset_widths(dev, preset, off_chip):
+    """Each preset's decoder at full width, B = 2, Tk = 40, 12 steps,
+    kernel against plain: nyanko's 256 KiB of ring buffers a row leave
+    shared memory in part, VCTK's and LJSpeech's stay in it. Bar: 3x the
+    plain f32 decode's own drift from a float64 one (chip_smoke.py's B1
+    bar), last_attended exact."""
+    import copy
+    import json
+    import os
+
+    from deepvoice3_pytorch_tpu_torch import hparams, model_builder
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    hp = hparams.default_hparams()
+    with open(os.path.join(repo, "presets", preset + ".json")) as f:
+        hp.parse_json(f.read())
+    cfg, params = model_builder.build_model(hp, 149, seed=3, device=dev)
+    B, Tk = 2, 40
+    g = torch.Generator().manual_seed(4)
+    width = (cfg.decoder.channels if cfg.builder == "nyanko"
+             else cfg.decoder.embed_dim)
+    enc = tuple(torch.randn(B, Tk, width, generator=g).to(dev) * 0.5
+                for _ in range(2))
+    pos = torch.arange(1, Tk + 1, device=dev)[None].repeat(B, 1)
+    se = (builder.embed_speakers(params, cfg, torch.tensor([7, 14],
+                                                           device=dev))
+          if cfg.n_speakers > 1 else None)
+    pd = params["decoder"]
+    fam = cfg.family
+    fi = fam.fused_decode_inputs(pd, cfg.decoder, enc, pos, 12,
+                                 speaker_embed=se)
+    dec = fd.FusedDecoder(pd, cfg.decoder, fi, None, 12)
+    assert (dec.scratch_floats > 0) == off_chip, json.dumps(
+        [dec.ring_smem, dec.scratch_floats])
+    init = torch.zeros(B, dec.out_dim, device=dev)
+    got = fd.fused_decode(pd, cfg.decoder, fi, None, init, 12, 2,
+                          early_exit=False)
+    want = fd.fused_decode_plain(pd, cfg.decoder, fi, None, init, 12, 2,
+                                 early_exit=False)
+    pd64 = copy.deepcopy(pd).double()
+    se64 = None if se is None else se.double()
+    fi64 = fam.fused_decode_inputs(pd64, cfg.decoder,
+                                   tuple(e.double() for e in enc), pos, 12,
+                                   speaker_embed=se64)
+    exact = fd.fused_decode_plain(pd64, cfg.decoder, fi64, None,
+                                  init.double(), 12, 2, early_exit=False)
+    for name in ("outputs", "alignments", "done", "decoder_states"):
+        err = float((getattr(got, name) - getattr(want, name)).abs().max())
+        floor = float((getattr(want, name).double()
+                       - getattr(exact, name)).abs().max())
+        assert err <= 3 * floor + 1e-6, (name, err, floor)
+    assert torch.equal(got.last_attended, want.last_attended)
 
 
 def test_fused_decode_carry_resumes(dev):
@@ -231,6 +378,67 @@ def test_tiny_stream_gpu_matches_cpu(dev):
         assert float(abs(g_["linear"] - r_["linear"]).max()) <= 1e-4
         peak = max(float(abs(r_["audio"]).max()), 1e-6)
         assert float(abs(g_["audio"] - r_["audio"]).max()) <= 0.12 * peak
+
+
+def _spectral_convergence(wav, lin, ap):
+    """|| |STFT(wav)| - S || / || S || for the magnitudes S Griffin-Lim was
+    given (lws framing), the waveform pre-emphasised back first."""
+    x = torch.from_numpy(wav).double()
+    x = torch.cat([x[:, :1], x[:, 1:] - ap.preemphasis_coef * x[:, :-1]], 1)
+    win = torch.from_numpy(dsp.lws_hann_window(ap.fft_size, ap.hop_size))
+    M = torch.abs(dsp.stft(dsp.lws_pad(x.float(), ap.fft_size, ap.hop_size),
+                           ap.fft_size, ap.hop_size, win))
+    S = ap._denorm_pow(torch.from_numpy(lin))
+    n = S.shape[1]
+    return (torch.linalg.norm(M[:, :n] - S, dim=(1, 2))
+            / torch.linalg.norm(S, dim=(1, 2)))
+
+
+@pytest.mark.parametrize("name,speaker_ids", [
+    ("nyanko", None), ("deepvoice3_multispeaker", [3, 0])])
+def test_tiny_family_stream_gpu_matches_cpu(dev, name, speaker_ids):
+    """A tiny nyanko or multi-speaker model's tts_stream on the card (B1's
+    new modes, B2's stream modes) against the same stream on the CPU:
+    decoded steps and chunk sizes exact, linear frames 1e-4, spectral
+    convergence of the audio within 1.05x of the CPU's (a tiny random
+    nyanko makes nearly flat spectra, on which two bf16 Griffin-Lim
+    schedules part by more than the 0.12 of the peak held above)."""
+    from deepvoice3_pytorch_tpu_torch import hparams, streaming
+    from deepvoice3_pytorch_tpu_torch.dsp.audio import AudioProcessor
+    from deepvoice3_pytorch_tpu_torch.frontend import en
+
+    kw = dict(n_vocab=en.n_vocab, embed_dim=32, mel_dim=16, linear_dim=65,
+              r=1, downsample_step=4, kernel_size=3, encoder_channels=32,
+              decoder_channels=32, converter_channels=32,
+              use_memory_mask=True, max_positions=64)
+    if speaker_ids:
+        kw.update(n_speakers=5, speaker_embed_dim=8, key_projection=True,
+                  value_projection=True)
+    else:
+        kw.update(use_decoder_state_for_postnet_input=True)
+    cfg = getattr(builder, name)(**kw)
+    params = builder.model_init(cfg, torch.Generator().manual_seed(7),
+                                device="cpu")
+    hp = hparams.default_hparams()
+    hp.fft_size, hp.hop_size = 128, 32
+    ap = AudioProcessor(hp)
+    texts = ["Hello streaming world.", "A second, longer sentence here."]
+    skw = dict(max_decoder_steps=40, emit_linear=True,
+               speaker_ids=speaker_ids)
+    ref = list(streaming.tts_stream(params, cfg, ap, en, texts, **skw))
+    fd.KERNEL.reset_counts()
+    gl_cuda.KERNEL.reset_counts()
+    got = list(streaming.tts_stream(params.to(dev), cfg, ap, en, texts,
+                                    **skw))
+    assert fd.KERNEL.launches > 0 and gl_cuda.KERNEL.by_entry.get("pinned")
+    assert [c["audio"].shape for c in got] == [c["audio"].shape for c in ref]
+    assert (got[-1]["decoded_steps"] == ref[-1]["decoded_steps"]).all()
+    for g_, r_ in zip(got, ref):
+        assert float(abs(g_["linear"] - r_["linear"]).max()) <= 1e-4
+    lin = np.concatenate([c["linear"] for c in ref], axis=1)
+    sc = [_spectral_convergence(np.concatenate([c["audio"] for c in run], 1),
+                                lin, ap) for run in (got, ref)]
+    assert bool((sc[0] <= 1.05 * sc[1]).all()), sc
 
 
 def test_griffin_lim_kernel_rejects_bad_framing(dev):

@@ -363,7 +363,8 @@ def test_stream_matches_jax_stream(tiny, streams):
 
 def test_stream_alignment_and_single_chunk(tiny):
     """emit_alignment hands back the whole decode's attention on the last
-    chunk; a stream of one chunk is final at once."""
+    chunk; a stream of one chunk is final at once; speaker ids given to a
+    single-speaker model raise."""
     _, (cfg_t, pt, ap_t) = tiny
     chunks = list(t_stream.tts_stream(pt, cfg_t, ap_t, t_en, TEXTS[2:],
                                       max_decoder_steps=8, first_chunk=8,
@@ -371,7 +372,7 @@ def test_stream_alignment_and_single_chunk(tiny):
     assert len(chunks) == 1 and chunks[0]["final"]
     al = chunks[0]["alignment"]
     assert al.shape[:2] == (1, 8) and np.allclose(al.sum(-1), 1.0, atol=1e-4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         next(t_stream.tts_stream(pt, cfg_t, ap_t, t_en, TEXTS[:1],
                                  speaker_ids=[0]))
 

@@ -22,9 +22,26 @@ TINY = dict(n_vocab=149, embed_dim=32, mel_dim=16, linear_dim=65, r=1,
             force_monotonic_attention=True)
 
 
-def tiny_configs(**kw):
-    kwargs = dict(TINY, **kw)
-    return jb.deepvoice3(**kwargs), tb.deepvoice3(**kwargs)
+# the other two builders at the same narrow widths: nyanko (highway stacks,
+# finished position encodings, no key/value projections) and the
+# multi-speaker DeepVoice3 (speaker embedding, per-sample position rates,
+# speaker softsign biases in every GLU layer; the VCTK preset's rates)
+TINY_NYANKO = dict(n_vocab=149, embed_dim=32, mel_dim=16, linear_dim=65, r=1,
+                   downsample_step=4, dropout=0.05, kernel_size=3,
+                   encoder_channels=32, decoder_channels=32,
+                   converter_channels=32, use_memory_mask=True,
+                   max_positions=64, key_position_rate=1.385,
+                   force_monotonic_attention=True,
+                   use_decoder_state_for_postnet_input=True)
+TINY_MULTISPEAKER = dict(TINY, n_speakers=5, speaker_embed_dim=8,
+                         query_position_rate=2.0, key_position_rate=7.6)
+TINY_BY_BUILDER = {"deepvoice3": TINY, "nyanko": TINY_NYANKO,
+                   "deepvoice3_multispeaker": TINY_MULTISPEAKER}
+
+
+def tiny_configs(builder="deepvoice3", **kw):
+    kwargs = dict(TINY_BY_BUILDER[builder], **kw)
+    return getattr(jb, builder)(**kwargs), getattr(tb, builder)(**kwargs)
 
 
 def jax_params(cfg_j, seed=42):
