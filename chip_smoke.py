@@ -74,7 +74,24 @@ Phases, one line each; any failure exits non-zero before the result lines:
      B = 1 and one B = 8 stream (ttfa_ms, stream RTF); fails unless B1 and
      B2 launched and B3 did not; for VCTK one HTTP request with a
      speaker_id;
- 14. the training main path: the LJSpeech preset at full width, seeded
+ 14. continuous batching (phases `B1_serve`, `serve_reference`, `cb`,
+     `serve_slots`, `cb_nyanko`, `cb_vctk`): B1's serving modes (per-row
+     positions advanced in the kernel, per-row context scales) against the
+     plain per-row decode at LJSpeech's full width, S = 8, Tk = 128, two
+     16-step launches (the B1 bar, last_attended and positions exact; ms
+     per launch, bound); a tiny model's ContinuousBatcher GPU vs CPU
+     (decoded steps exact, spectral convergence 1.05x); then bench.py's
+     continuous-batching schedules at full width, ContinuousBatcher(8
+     slots, chunk 16, text_pad 64, 200 steps) on its worker thread after a
+     warm-up request: LJSpeech 8 and then 24 requests 50 ms apart
+     (per-request ttfa, aggregate RTF, step phases, one B1 launch a step,
+     B2 launches a step, a torch.profiler breakdown of 8 requests at once),
+     nyanko 8, VCTK 8 with speakers 0, 8, ..., 56 and min_decoder_steps =
+     200; each request's length must equal decoded_samples of its steps and
+     at least two mid-stream admissions must decode the steps of a fresh
+     tts_stream; TTSEngine(slots=8) over HTTP with 8 concurrent requests,
+     /stats, and a 503 from an engine with max_backlog=0;
+ 15. the training main path: the LJSpeech preset at full width, seeded
      random weights, make_train_step at bench.py's shapes (B = 16 f32 with
      TF32 off, B = 64 bf16) in conv_mode "kernel" and, as the yardstick,
      "library" (cuDNN), taken in turns; ms/step, steps/s and MFU against the
@@ -84,8 +101,11 @@ Phases, one line each; any failure exits non-zero before the result lines:
      steps on a synthetic-corpus batch, whose loss must be finite and fall.
      Fails unless B3 was launched in the kernel-mode steps.
 The line before the last is the kernels' JSON record (B1's launches
-summed over the three builders' main paths, its worst error over the
-three B1 phases; its times are the LJSpeech phase's); the last line is
+summed over the three builders' main paths and the serving paths, its
+worst error over the four B1 phases; its times are the LJSpeech phase's;
+`fused_decode_slots` is the serving mode alone: its launches on the
+serving paths, B1_serve's error and times; `griffin_lim_stream` counts
+its launches on the stream and serving paths); the last line is
 {"ok": true, "device": {...}}. `--json-out PATH` also writes the B3 and
 training numbers, in full, to PATH.
 
@@ -1405,6 +1425,472 @@ def preset_main_path(torch, pkg, hp, dev, seed, card, label):
     return rows, batch["fused_decode"] + stream["fused_decode"]
 
 
+# ---------------------------------------------------------------------------
+# continuous batching: B1's serving modes, the batcher, the slots engine
+# ---------------------------------------------------------------------------
+
+
+def slot_inputs(torch, fd, fi, lengths, Tk, scales):
+    """fused_decode.SlotInputs whose row b holds row b of the batched
+    fused-decode inputs fi, written the way an admission writes it."""
+    from deepvoice3_pytorch_tpu_torch.ops import core
+
+    mask = core.get_mask_from_lengths(lengths, Tk)
+
+    def row(b):
+        one = slice(b, b + 1)
+        return dict(fi, projected_kv=[
+            None if p is None else (p[0][one], p[1][one])
+            for p in fi["projected_kv"]],
+            w_query=None if fi["w_query"] is None else fi["w_query"][one],
+            speaker_bias=[x[one] for x in fi["speaker_bias"] or []],
+            speaker_embed=(None if fi.get("speaker_embed") is None
+                           else fi["speaker_embed"][one]))
+
+    si = fd.slot_inputs(row(0), mask.shape[0], Tk)
+    for b in range(mask.shape[0]):
+        fd.write_slot_row(si, b, row(b), mask[b:b + 1], scales[b])
+    return si
+
+
+def check_b1_serve(torch, pkg, hp, dev, seed, S=8, Tk=128, steps=16):
+    """B1's serving modes against the plain per-row decoder at a preset's
+    full width: S = 8 slots, Tk = 128, random keys and values; rows at
+    local positions 0, 16, ..., 96 and the last at the position table's
+    end less 4 (its launch runs past the table and clamps); rows 0-3 were
+    admitted at bucket 64 (lengths <= 64, its context scale), rows 4-7 at
+    128. A 16-step launch, then a second one from the carry. Returns (row
+    of numbers, ok)."""
+    from deepvoice3_pytorch_tpu_torch import builder
+    from deepvoice3_pytorch_tpu_torch.ops import fused_decode as fd
+
+    cfg, params = pkg["model_builder"].build_model(hp, pkg["en"].n_vocab,
+                                                   seed=seed, device=dev)
+    pd, dc = params["decoder"], cfg.decoder
+    g = torch.Generator().manual_seed(seed + 2)
+    E = key_width(cfg)
+    keys = (torch.randn(S, Tk, E, generator=g) * 0.5).to(dev)
+    values = (torch.randn(S, Tk, E, generator=g) * 0.5).to(dev)
+    half = S // 2
+    lengths = torch.cat([torch.randint(20, 65, (half,), generator=g),
+                         torch.randint(65, Tk + 1, (S - half,), generator=g)
+                         ]).to(dev)
+    pos = torch.arange(1, Tk + 1, device=dev)[None, :].repeat(S, 1)
+    pos = torch.where(pos <= lengths[:, None], pos, torch.zeros_like(pos))
+    spk = batch_speakers(cfg, S)
+    se = (None if spk is None else builder.embed_speakers(
+        params, cfg, torch.tensor(spk, device=dev)))
+    fi = cfg.family.fused_decode_inputs(pd, dc, (keys, values), pos, 1,
+                                        speaker_embed=se)
+    scales = [n * np.sqrt(1.0 / n) for n in [64] * half + [Tk] * (S - half)]
+    si = slot_inputs(torch, fd, fi, lengths, Tk, scales)
+    # the float64 run starts from the same random keys and values, as
+    # check_b1's does: B1's bar
+    pd64 = copy.deepcopy(pd).double()
+    fi64 = cfg.family.fused_decode_inputs(
+        pd64, dc, (keys.double(), values.double()), pos, 1,
+        speaker_embed=None if se is None else se.double())
+    si64 = slot_inputs(torch, fd, fi64, lengths, Tk, scales)
+    n_table = pd["embed_query_positions"]["w"].shape[0]
+    local = torch.tensor([16 * i for i in range(S - 1)] + [n_table - 4],
+                         device=dev)
+    kern = fd.SlotDecoder(pd, dc, S, dev)
+    plain = fd.PlainSlotDecoder(pd, dc, S, dev)
+    plain64 = fd.PlainSlotDecoder(pd64, dc, S, dev, dtype=torch.float64)
+
+    def run(dec, inputs):
+        carry = dec.zero_carry()
+        dec.positions(carry)[:] = local
+        outs = []
+        for _ in range(2):
+            o = dec.new_outputs(steps, Tk)
+            dec.launch(inputs, carry, o, steps)
+            outs.append(o)
+        return [torch.cat(x, dim=1) for x in zip(*outs)], carry
+
+    got, c_k = run(kern, si)
+    want, c_p = run(plain, si)
+    exact, _ = run(plain64, si64)
+    torch.cuda.synchronize()
+    names = ("outputs", "alignments", "done", "decoder_states")
+    errs = {n: maxabs(a, b) for n, a, b in zip(names, got, want)}
+    floor = {n: float((b.double() - e).abs().max())
+             for n, b, e in zip(names, want, exact)}
+    la_p = c_p["state"]["last_attended"][:, plain.att].to(torch.int32)
+    flips = (c_k.last_attended[:, :len(plain.att)] != la_p).nonzero() \
+        .tolist()
+    want_pos = torch.clamp(local + 2 * steps, max=1 << 30)
+    pos_exact = (torch.equal(c_k.pos.long(), want_pos)
+                 and torch.equal(c_p["state"]["pos"], want_pos))
+
+    carry = kern.zero_carry()
+    outs = kern.new_outputs(steps, Tk)
+    ms = cuda_ms(lambda: kern.launch(si, carry, outs, steps), torch,
+                 reps=10)
+    p_carry = plain.zero_carry()
+    p_outs = plain.new_outputs(steps, Tk)
+    plain_ms = cuda_ms(lambda: plain.launch(si, p_carry, p_outs, steps),
+                       torch, reps=1)
+    bound_ = b1_bound_ms(torch, pkg, hp, dev, seed, B=S, Tk=Tk, steps=steps)
+    ok = (not flips and pos_exact
+          and all(errs[n] <= 3 * floor[n] + 1e-6 for n in errs))
+    return {"errs": errs, "floor": floor, "flips": flips[:8],
+            "positions_exact": pos_exact, "err": max(errs.values()),
+            "ms": ms, "plain_ms": plain_ms, "bound": bound_,
+            "placement": {"shared_ring_floats": kern.ring_smem,
+                          "device_ring_floats": kern.scratch_floats}}, ok
+
+
+def drain_queue(q, timeout=600):
+    """(audio, decoded steps) of a batcher request's queue; raises the
+    engine's error."""
+    audio = []
+    while True:
+        kind, payload = q.get(timeout=timeout)
+        if kind == "error":
+            raise payload
+        if kind == "end":
+            return (np.concatenate(audio) if audio
+                    else np.zeros(0, np.float32)), payload
+        audio.append(payload)
+
+
+def check_serve_reference(torch, pkg, dev):
+    """A tiny model's ContinuousBatcher on the GPU (B1's serving modes, B2)
+    against the same schedule on the CPU (plain versions): three requests,
+    each admitted one step after the previous. Decoded steps exact; the
+    GPU's audio held to spectral convergence within 1.05x of the CPU's,
+    against the magnitudes of the CPU stream's linear frames."""
+    from deepvoice3_pytorch_tpu_torch import serving
+    from deepvoice3_pytorch_tpu_torch.dsp import gl_cuda
+    from deepvoice3_pytorch_tpu_torch.ops import fused_decode as fd
+
+    cfg, params, ap, _ = tiny_model(pkg)
+    # within the tiny model's 63-token cap
+    texts = ["Hello streaming world.", "A second, longer sentence here.",
+             "And a third one to end."]
+    kw = dict(n_slots=3, text_pad=16, chunk=8, max_decoder_steps=40,
+              gl_context=8)
+    runs = []
+    for p in (params, params.to(dev)):
+        b = serving.ContinuousBatcher(p, cfg, ap, pkg["en"], **kw)
+        fd.KERNEL.reset_counts()
+        gl_cuda.KERNEL.reset_counts()
+        qs = []
+        for text in texts:
+            qs.append(b.submit(text))
+            b.step()
+        while b.step():
+            pass
+        runs.append([drain_queue(q, 60) for q in qs])
+    launches = {"fused_decode_slots": fd.KERNEL.by_entry.get("slots", 0),
+                "steps": b._steps_run,
+                "griffin_lim": gl_cuda.KERNEL.launches}
+    worst = {"steps": 0, "lengths": 0, "sc_ratio": 0.0,
+             "launches": launches}
+    for text, (a_c, n_c), (a_g, n_g) in zip(texts, *runs):
+        worst["steps"] += n_c != n_g
+        worst["lengths"] += len(a_c) != len(a_g)
+        if n_c != n_g or len(a_c) != len(a_g):
+            continue
+        lin = list(pkg["streaming"].tts_stream(
+            params, cfg, ap, pkg["en"], [text], max_decoder_steps=40,
+            first_chunk=8, chunk=8, gl_context=8, pad_to=16,
+            emit_linear=True))
+        lin = np.concatenate([c["linear"] for c in lin], axis=1)[0]
+        lin = lin[:len(a_c) // ap.hop_size]
+        worst["sc_ratio"] = max(worst["sc_ratio"], sc_ratio(
+            torch, ap, a_g[None], a_c[None], lin[None]))
+    ok = (worst["steps"] == 0 and worst["lengths"] == 0
+          and worst["sc_ratio"] <= 1.05
+          and launches["fused_decode_slots"] == launches["steps"] > 0)
+    return worst, ok
+
+
+def cb_requests(b, texts, speakers, stagger_s):
+    """Requests i = 0, 1, ... submitted stagger_s * i seconds after the
+    start from threads of their own, as bench.py's continuous-batching row
+    does. Returns ([(ttfa s, wall s, samples, decoded steps)], wall s)."""
+    import threading
+
+    results = {}
+
+    def one(i):
+        time.sleep(stagger_s * i)
+        t0 = time.perf_counter()
+        q = b.submit(texts[i], speaker_id=speakers[i])
+        first, n, audio = None, 0, []
+        while True:
+            kind, payload = q.get(timeout=600)
+            if kind == "error":
+                results[i] = payload
+                return
+            if kind == "end":
+                results[i] = (first, time.perf_counter() - t0, n, payload)
+                return
+            if first is None:
+                first = time.perf_counter() - t0
+            n += len(payload)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(texts))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    for i in range(len(texts)):
+        if isinstance(results.get(i), BaseException):
+            raise results[i]
+    return [results[i] for i in range(len(texts))], wall
+
+
+def cb_main_path(torch, pkg, hp, dev, seed, card, label, speakers=None,
+                 min_steps=None, n_reqs=(8, 24), profile=False):
+    """Continuous batching at a preset's full width, bench.py's schedules
+    (`bench_continuous_batching`): ContinuousBatcher(n_slots=8, chunk=16,
+    text_pad=64, max_decoder_steps=200) on its worker thread, one warm-up
+    request, then n_req requests 50 ms apart for each n_req (sentence i %
+    32, speaker speakers[i % 8]). Checks each request's length against
+    decoded_samples of its steps, and the mid-stream admissions of the
+    first run against a fresh tts_stream of their text. Returns (rows,
+    launches of B1's serving mode and of B2 in the timed runs)."""
+    import dataclasses
+    import threading
+
+    from deepvoice3_pytorch_tpu_torch import serving
+    from deepvoice3_pytorch_tpu_torch.dsp import gl_cuda
+    from deepvoice3_pytorch_tpu_torch.ops import conv_cuda
+    from deepvoice3_pytorch_tpu_torch.ops import fused_decode as fd
+
+    streaming, en = pkg["streaming"], pkg["en"]
+    cfg, params = pkg["model_builder"].build_model(hp, en.n_vocab, seed=seed,
+                                                   device=dev)
+    if min_steps is not None:
+        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+            cfg.decoder, min_decoder_steps=min_steps))
+    ap = pkg["AudioProcessor"](hp)
+    kw = dict(n_slots=8, text_pad=64, chunk=16, max_decoder_steps=200)
+    b = serving.ContinuousBatcher(params, cfg, ap, en, **kw)
+    stop = threading.Event()
+    worker = threading.Thread(target=b.run_loop, args=(stop,), daemon=True)
+    worker.start()
+    spk = [None] * 8 if speakers is None else list(speakers)
+    rows, path_launches = {}, {"fused_decode_slots": 0, "griffin_lim": 0}
+    try:
+        cb_requests(b, SENTENCES[:1], spk[:1], 0.0)            # warm-up
+        for n_req in n_reqs:
+            texts = [SENTENCES[i % len(SENTENCES)] for i in range(n_req)]
+            sp = [spk[i % 8] for i in range(n_req)]
+            for k in (fd.KERNEL, gl_cuda.KERNEL, conv_cuda.KERNEL):
+                k.reset_counts()
+            before = b.timing()
+            res, wall = cb_requests(b, texts, sp, 0.05)
+            after = b.timing()
+            steps = after["n_steps"] - before["n_steps"]
+            launches = {"fused_decode_slots": fd.KERNEL.by_entry.get(
+                            "slots", 0),
+                        "fused_decode_other": fd.KERNEL.launches
+                        - fd.KERNEL.by_entry.get("slots", 0),
+                        "griffin_lim": gl_cuda.KERNEL.launches,
+                        "conv_taps": conv_cuda.KERNEL.launches}
+            for k in path_launches:
+                path_launches[k] += launches[k]
+            if launches["fused_decode_slots"] != steps or \
+                    launches["fused_decode_other"] or \
+                    launches["griffin_lim"] <= 0 or launches["conv_taps"]:
+                fail("%s: launches %s over %d steps: one serving-mode B1 "
+                     "launch a step, B2 launched, nothing else"
+                     % (label, launches, steps))
+            bad = [i for i, r in enumerate(res)
+                   if r[2] != streaming.decoded_samples(cfg, ap, r[3])]
+            if bad:
+                fail("%s: requests %s: samples != decoded_samples of their "
+                     "steps" % (label, bad))
+            audio_s = sum(r[2] for r in res) / ap.sample_rate
+            row = {"ttfa_ms": [round(r[0] * 1e3, 3) for r in res],
+                   "wall_ms": wall * 1e3, "audio_s": audio_s,
+                   "aggregate_rtf": audio_s / wall,
+                   "decoded_steps": [r[3] for r in res], "steps": steps,
+                   "step_phase_ms": {k: round(after[k] - before[k], 1)
+                                     for k in after if k != "n_steps"},
+                   "launches": launches,
+                   "b2_per_step": launches["griffin_lim"] / max(steps, 1)}
+            rows["requests_%d" % n_req] = row
+            phase(label, "%d requests 50 ms apart on 8 slots: wall %.1f ms "
+                  "for %.2f s of audio, aggregate RTF %.1fx, %d steps, ttfa "
+                  "ms %s, step phases ms %s, launches %s (B2 %.2f a step) "
+                  "(%s)" % (n_req, wall * 1e3, audio_s, audio_s / wall,
+                            steps, row["ttfa_ms"],
+                            json.dumps(row["step_phase_ms"]),
+                            json.dumps(launches), row["b2_per_step"], card))
+    finally:
+        stop.set()
+        worker.join(timeout=60)
+    # mid-stream admissions of the first run against fresh streams
+    first = rows["requests_%d" % n_reqs[0]]["decoded_steps"]
+    same = []
+    for i in range(1, min(8, len(first))):
+        chunks = list(streaming.tts_stream(
+            params, cfg, ap, en, [SENTENCES[i]],
+            speaker_ids=None if spk[i] is None else [spk[i]],
+            max_decoder_steps=200, first_chunk=16, chunk=16, pad_to=64))
+        same.append(int(chunks[-1]["decoded_steps"][0]) == first[i])
+    rows["mid_stream_equal_fresh"] = same
+    if sum(same) < 2:
+        fail("%s: mid-stream admissions equal to a fresh stream: %s"
+             % (label, same))
+    phase(label, "decoded steps of requests 1-7 equal to a fresh tts_stream "
+          "of their text: %s" % same)
+    if profile:
+        # the same 8 sentences, all at once, driven from this thread:
+        # device time by kernel against the host's wall
+        pb = serving.ContinuousBatcher(params, cfg, ap, en, **kw)
+
+        def drive():
+            qs = [pb.submit(x, speaker_id=s)
+                  for x, s in zip(SENTENCES[:8], spk)]
+            while pb.step():
+                pass
+            for q in qs:
+                drain_queue(q)
+
+        drive()
+        torch.cuda.synchronize()
+        t = time.time()
+        drive()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t) * 1e3
+        n0 = pb._steps_run
+        rows["profile"] = profile_device(torch, drive, 1, wall_ms)
+        rows["profile"]["wall_ms"] = wall_ms
+        rows["profile"]["steps"] = pb._steps_run - n0
+        phase(label, "8 requests at once, one thread: %.1f ms wall, device "
+              "%.2f ms (busy %.3f) over %d steps; top device time [ms, "
+              "launches, name]: %s" % (
+                  wall_ms, rows["profile"]["device_ms_per_step"],
+                  rows["profile"]["busy_share"], rows["profile"]["steps"],
+                  json.dumps(rows["profile"]["top"][:10])))
+    return rows, path_launches
+
+
+SLOT_CLIENTS = r"""
+import json, sys, threading, time, urllib.parse, urllib.request
+base, texts = sys.argv[1], json.loads(sys.argv[2])
+out = {}
+
+def fetch(i):
+    url = base + "/tts?" + urllib.parse.urlencode({"text": texts[i]})
+    t = time.time()
+    with urllib.request.urlopen(url, timeout=300) as r:
+        head = r.read(46)
+        t_first = time.time() - t
+        body = head + r.read()
+    out[i] = (t_first, time.time() - t, body.hex())
+
+threads = [threading.Thread(target=fetch, args=(i,))
+           for i in range(len(texts))]
+t0 = time.time()
+for th in threads:
+    th.start()
+for th in threads:
+    th.join()
+print(json.dumps({"wall": time.time() - t0, "out": out}))
+"""
+
+
+def serve_slots_main_path(torch, pkg, params, cfg, ap, card):
+    """TTSEngine(slots=8) + make_handler on a ThreadingHTTPServer at
+    127.0.0.1:0: after the warm-up, 8 concurrent /tts requests from a
+    client process of their own (its time to the first PCM bytes: clients
+    in this process would wait for the interpreter lock behind the
+    batcher's worker thread), /stats; then one request to an engine with
+    max_backlog=0, which must answer 503 with Retry-After: 1 and count it
+    as rejected. Returns (rows, serving launches of B1, problems)."""
+    import struct
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from deepvoice3_pytorch_tpu_torch.dsp import gl_cuda
+    from deepvoice3_pytorch_tpu_torch.ops import fused_decode as fd
+
+    serve, streaming, en = pkg["serve"], pkg["streaming"], pkg["en"]
+    per_step = streaming.decoded_samples(cfg, ap, 1)
+    problems, rows = [], {"requests": []}
+    class Server(ThreadingHTTPServer):
+        # a listen backlog for 8 clients that connect at once (the default
+        # 5 drops SYNs, and their retransmits would time TCP, not TTS)
+        request_queue_size = 64
+
+    engine = serve.TTSEngine(params, cfg, ap, en, max_decoder_steps=200,
+                             slots=8)
+    engine.warmup()
+    server = Server(("127.0.0.1", 0), serve.make_handler(engine))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    try:
+        for k in (fd.KERNEL, gl_cuda.KERNEL):
+            k.reset_counts()
+        res = subprocess.run(
+            [sys.executable, "-c", SLOT_CLIENTS, base,
+             json.dumps(SENTENCES[:8])], capture_output=True, text=True,
+            timeout=600)
+        launches = {"fused_decode_slots": fd.KERNEL.by_entry.get("slots", 0),
+                    "griffin_lim": gl_cuda.KERNEL.launches}
+        if res.returncode != 0:
+            fail("serve_slots clients: %s" % res.stderr[-2000:])
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        rows["wall_ms"] = got["wall"] * 1e3
+        for i in range(8):
+            if str(i) not in got["out"]:
+                problems.append("request %d failed" % i)
+                continue
+            t_first, wall, body = got["out"][str(i)]
+            body = bytes.fromhex(body)
+            n = (len(body) - 44) // 2
+            rows["requests"].append({"ttfa_ms": t_first * 1e3,
+                                     "wall_ms": wall * 1e3, "samples": n})
+            if body[:4] != b"RIFF" or \
+                    struct.unpack("<I", body[24:28])[0] != ap.sample_rate \
+                    or n <= 0 or n % per_step or n > 200 * per_step:
+                problems.append("request %d: bad WAV (%d samples)" % (i, n))
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            rows["stats"] = json.loads(r.read())
+        st = rows["stats"]
+        if st["requests_total"] != 8 or st["requests_failed"] or \
+                st["slots"] != 8 or st["active_slots"] or st["backlog"]:
+            problems.append("/stats: %s" % st)
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+    shed = serve.TTSEngine(params, cfg, ap, en, max_decoder_steps=200,
+                           slots=1, max_backlog=0)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(shed))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    try:
+        try:
+            urllib.request.urlopen(base + "/tts?text=shed", timeout=60)
+            problems.append("no 503 from an engine with max_backlog=0")
+        except urllib.error.HTTPError as e:
+            if e.code != 503 or e.headers["Retry-After"] != "1":
+                problems.append("max_backlog=0 gave %d, Retry-After %s"
+                                % (e.code, e.headers["Retry-After"]))
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            st = json.loads(r.read())
+        if st["requests_rejected"] != 1 or st["requests_failed"]:
+            problems.append("shed /stats: %s" % st)
+    finally:
+        server.shutdown()
+        server.server_close()
+        shed.shutdown()
+    return rows, launches, problems
+
+
 B1_TURNS = r"""
 import json, sys, torch
 sys.path.insert(0, '.')
@@ -1552,7 +2038,22 @@ def main():
             if (placement["device_bytes_per_row"] > 0) != \
                     (label == "B1_nyanko"):
                 fail("%s: unexpected ring placement %s" % (label, placement))
-        b1_err = max(r["err"] for r in b1_rows.values())
+        b1s, b1s_ok = check_b1_serve(torch, pkg, hp, dev, seed)
+        phase("B1_serve", "fused decode serving modes (per-row positions "
+              "advanced in the kernel, per-row context scales) vs the plain "
+              "per-row decode, LJSpeech, S=8 Tk=128, rows at positions 0, "
+              "16, ..., 96 and the table's end - 4, scales of buckets 64 "
+              "and 128, 2 x 16 steps: max abs err %s, plain-vs-float64 "
+              "floor %s (bar 3x floor), last_attended flips %s, positions "
+              "exact %s; kernel %.3f ms per 16-step launch (phase B1's "
+              "LJSpeech chunk: %.3f ms per 32 steps at B=32, Tk=96), plain "
+              "%.3f ms, bound %.4f ms (%s); rings %s (%s)" % (
+                  json.dumps(b1s["errs"]), json.dumps(b1s["floor"]),
+                  b1s["flips"], b1s["positions_exact"], b1s["ms"],
+                  b1_rows["B1"]["ms"], b1s["plain_ms"], b1s["bound"][0],
+                  b1s["bound"][1], json.dumps(b1s["placement"]), card))
+        ok &= b1s_ok
+        b1_err = max([r["err"] for r in b1_rows.values()] + [b1s["err"]])
         b1_ms, b1_plain_ms = b1_rows["B1"]["ms"], b1_rows["B1"]["plain_ms"]
 
         b2_err, b2_rel, sc_k, sc_p, b2_ms, b2_plain_ms = check_b2(
@@ -1628,6 +2129,13 @@ def main():
                   "chunk sizes exact, linear frames 1e-4, %s)"
                   % (bname, json.dumps(worst_s), audio_bar))
             ok &= stream_ref_ok
+        worst_sv, sv_ref_ok = check_serve_reference(torch, pkg, dev)
+        phase("serve_reference", "tiny deepvoice3 ContinuousBatcher, 3 "
+              "requests one step apart, GPU kernels vs CPU plain: %s (bars: "
+              "decoded steps and lengths exact, spectral convergence 1.05x "
+              "the CPU's, one serving-mode B1 launch a step)"
+              % json.dumps(worst_sv))
+        ok &= sv_ref_ok
         if not ok:
             fail("a kernel or the reference comparison disagreed")
 
@@ -1726,6 +2234,36 @@ def main():
         phase("B1", "launches on the three builders' main paths (tts_batch "
               "+ streams): %s" % json.dumps(b1_paths))
 
+        # continuous batching: bench.py's schedules on 8 slots
+        cb_rows, cb_launches = {}, {}
+        cb_rows["cb"], cb_launches["cb"] = cb_main_path(
+            torch, pkg, hp, dev, seed, card, "cb", profile=True)
+        slot_rows, slot_launches, problems = serve_slots_main_path(
+            torch, pkg, params, cfg, ap, card)
+        cb_launches["serve_slots"] = slot_launches
+        cb_rows["serve_slots"] = slot_rows
+        phase("serve_slots", "TTSEngine(slots=8), 8 concurrent requests: "
+              "%s, all in %.1f ms; /stats %s; launches %s; max_backlog=0 "
+              "engine: 503 with Retry-After 1, counted as rejected (%s)" % (
+                  json.dumps(slot_rows["requests"]), slot_rows["wall_ms"],
+                  json.dumps(slot_rows["stats"]), json.dumps(slot_launches),
+                  card))
+        if problems or slot_launches["fused_decode_slots"] <= 0 or \
+                slot_launches["griffin_lim"] <= 0:
+            fail("serve_slots: %s, launches %s" % (problems, slot_launches))
+        cb_rows["cb_nyanko"], cb_launches["cb_nyanko"] = cb_main_path(
+            torch, pkg, presets["B1_nyanko"], dev, seed, card, "cb_nyanko",
+            n_reqs=(8,))
+        cb_rows["cb_vctk"], cb_launches["cb_vctk"] = cb_main_path(
+            torch, pkg, presets["B1_vctk"], dev, seed, card, "cb_vctk",
+            speakers=list(range(0, 64, 8)), min_steps=200, n_reqs=(8,))
+        phase("B1", "B1 serving-mode and B2 launches on the continuous-"
+              "batching paths: %s" % json.dumps(cb_launches))
+        b1_slots = {k: v["fused_decode_slots"]
+                    for k, v in cb_launches.items()}
+        if min(b1_slots.values()) <= 0:
+            fail("B1's serving mode was not launched on a serving path")
+
         b3_launches, train_rows = train_main_path(torch, pkg, hp, dev, seed,
                                                   card)
         phase("train", "B3 launches in the kernel-mode steps: %s"
@@ -1740,6 +2278,7 @@ def main():
                            "b3": {"%d_%s" % k: v for k, v in b3.items()},
                            "b2_stream": b2s, "p": p_row, "stream": st_rows,
                            "serve": sv_rows, "b1": b1_rows,
+                           "b1_serve": b1s, "cb": cb_rows,
                            "presets": preset_rows}, f, indent=1,
                           default=str)
 
@@ -1751,9 +2290,17 @@ def main():
         {"name": "fused_decode", "route": "cuda",
          "source": "deepvoice3_pytorch_tpu_torch/csrc/fused_decode.cu",
          "replaces": "deepvoice3_pytorch_tpu/ops/fused_decode.py:198",
-         "launches": sum(b1_paths.values()), "max_abs_err": b1_err,
-         "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound[0],
-         "bound_by": b1_bound[1], "library_ms": None},
+         "launches": sum(b1_paths.values()) + sum(b1_slots.values()),
+         "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain_ms,
+         "bound_ms": b1_bound[0], "bound_by": b1_bound[1],
+         "library_ms": None},
+        {"name": "fused_decode_slots", "route": "cuda",
+         "source": "deepvoice3_pytorch_tpu_torch/csrc/fused_decode.cu",
+         "replaces": "deepvoice3_pytorch_tpu/ops/fused_decode.py:198",
+         "launches": sum(b1_slots.values()), "max_abs_err": b1s["err"],
+         "ms": b1s["ms"], "plain_ms": b1s["plain_ms"],
+         "bound_ms": b1s["bound"][0], "bound_by": b1s["bound"][1],
+         "library_ms": None},
         {"name": "griffin_lim", "route": "cuda",
          "source": "deepvoice3_pytorch_tpu_torch/csrc/griffin_lim.cu",
          "replaces": "deepvoice3_pytorch_tpu/dsp/gl_pallas.py:146",
@@ -1763,7 +2310,8 @@ def main():
         {"name": "griffin_lim_stream", "route": "cuda",
          "source": "deepvoice3_pytorch_tpu_torch/csrc/griffin_lim.cu",
          "replaces": "deepvoice3_pytorch_tpu/dsp/gl_pallas.py:146",
-         "launches": st_launches["griffin_lim_stream"],
+         "launches": st_launches["griffin_lim_stream"] + sum(
+             v["griffin_lim"] for v in cb_launches.values()),
          "max_abs_err": b2s["err"], "ms": b2s["ms"],
          "plain_ms": b2s["plain_ms"], "bound_ms": b2s["bound"][0],
          "bound_by": b2s["bound"][1], "library_ms": None},

@@ -21,6 +21,20 @@
 // sin on even / cos on odd columns: DeepVoice3) or a finished encoding used
 // as it stands (nyanko). f32 throughout.
 //
+// Two modes serve continuous batching (the Pallas kernel's fpe_per_sample
+// and per_sample_scale), where every row is a slot at its own point of its
+// own utterance:
+//   per-row positions  `pos` (B,) holds the frames each row has decoded;
+//                      step s of row b reads row min(pos[b] + s + 1,
+//                      fpe_rows - 1) of the whole position table, and the
+//                      launch advances pos[b] by `steps` (capped at 2^30,
+//                      so a retired slot that keeps decoding never wraps);
+//   per-row scale      `row_scale` (B,) replaces the one context scale, so
+//                      a slot keeps the scale of the text length it was
+//                      admitted at when the batch's text dimension grows.
+// With both pointers null the kernel reads rows t0 .. t0+steps-1 of a table
+// shared by every row and scales by `ctx_scale`.
+//
 // Design. One thread block per batch row; the block loops over the chunk's
 // steps, which takes the place of the TPU's sequential grid. The row's
 // activations and `last_attended` live in dynamic shared memory, and so do
@@ -68,7 +82,8 @@ struct FusedDecodeArgs {
   const int* bufs;       // (n_buf, BUF_WORDS): rows, width, offset in the
                          // carry row, offset in its place, 1 = shared memory
   const float* weights;  // packed folded weights, each block 16-byte aligned
-  const float* fpe;      // (>= t0 + steps, C) query-position rows
+  const float* fpe;      // (>= t0 + steps, C) query-position rows; with
+                         // `pos`, the whole table (fpe_rows, C)
   const float* wq;       // (B,) query position rates (fpe_raw only)
   const float* addmask;  // (B, Tk): 0 valid, -1e9 padded
   const float* kv;       // (n_att, 2, B, Tk, E) projected keys, values
@@ -85,6 +100,9 @@ struct FusedDecodeArgs {
   int ring_smem_floats, scratch_floats, sp_width, fpe_raw;
   int T_total, t0, steps, last_w, last_b, fc_w, fc_b, act_dim, cat_dim;
   float ctx_scale;       // Tk * sqrt(1 / Tk) on the padded Tk
+  int* pos;              // (B,) per-row positions, or null (shared rows)
+  const float* row_scale;  // (B,) per-row context scales, or null
+  int fpe_rows;          // rows of the whole table (per-row positions)
 };
 
 namespace {
@@ -315,6 +333,9 @@ fused_decode_kernel(const FusedDecodeArgs a) {
   const int b = blockIdx.x, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const float* W = a.weights;
+  // read before the barrier below; thread 0 writes the advanced count last
+  const int pos0 = a.pos ? a.pos[b] : 0;
+  const float ctx_scale = a.row_scale ? a.row_scale[b] : a.ctx_scale;
   const float* addmask = a.addmask + (size_t)b * a.Tk;
   float* scratch = a.scratch + (size_t)b * a.scratch_floats;
 
@@ -327,7 +348,9 @@ fused_decode_kernel(const FusedDecodeArgs a) {
 
   for (int step = 0; step < a.steps; ++step) {
     const int t = a.t0 + step;
-    const float* row = a.fpe + (size_t)t * a.C;
+    const float* row =
+        a.fpe + (size_t)(a.pos ? min(pos0 + step + 1, a.fpe_rows - 1) : t) *
+                    a.C;
     if (a.fpe_raw) {
       const float wq = a.wq[b];
       for (int c = tid; c < a.C; c += NT) {
@@ -454,7 +477,7 @@ fused_decode_kernel(const FusedDecodeArgs a) {
             float acc = 0.0f;
             for (int k = 0; k < Tk; ++k)
               acc += s[k] * __ldg(vals + (size_t)k * E + e);
-            ctx[e] = acc * a.ctx_scale;
+            ctx[e] = acc * ctx_scale;
           }
           for (int k = tid; k < Tk; k += NT) ave[k] += s[k];
           __syncthreads();
@@ -486,6 +509,7 @@ fused_decode_kernel(const FusedDecodeArgs a) {
   // carry out, ring buffers back in logical order
   for (int i = tid; i < a.out_dim; i += NT) a.prev[b * a.out_dim + i] = x[i];
   if (tid < a.n_la) a.la[b * a.n_la + tid] = la[tid];
+  if (a.pos && tid == 0) a.pos[b] = min(pos0 + a.steps, 1 << 30);
   ring_copy(a, b, ring_sm, scratch, heads, true);
 }
 

@@ -314,14 +314,21 @@ def decoder_apply(params, cfg: DecoderConfig, encoder_out, inputs, *,
 
 
 def decoder_init_state(cfg: DecoderConfig, batch: int, device=None):
-    """Decode state: ring buffers + per-batch last_attended + t."""
+    """Decode state: ring buffers + per-batch last_attended + per-batch
+    positions (frames decoded)."""
     return {
         "prenet": cb.stack_init_state(cfg.prenet_specs, batch, device),
         "convs": cb.stack_init_state(cfg.conv_specs, batch, device),
         "last_attended": torch.zeros(batch, len(cfg.convolutions),
                                      dtype=torch.int64, device=device),
-        "t": 0,
+        "pos": torch.zeros(batch, dtype=torch.int64, device=device),
     }
+
+
+# a row's decoded count stops here: a retired serving slot keeps decoding
+# garbage until it is reused, and its count must never wrap (kernel B1 caps
+# the same way)
+POS_CAP = 1 << 30
 
 
 def decoder_precompute(params, cfg: DecoderConfig, encoder_out, *,
@@ -342,19 +349,19 @@ def decoder_precompute(params, cfg: DecoderConfig, encoder_out, *,
 
 
 def make_decoder_step(params, cfg: DecoderConfig, projected_kv, w_query, *,
-                      speaker_embed=None, mask=None):
-    """step_fn(state, x_t) for ops/fused_decode.PlainDecoder."""
+                      speaker_embed=None, mask=None, ctx_scale=None):
+    """step_fn(state, x_t) for ops/fused_decode.PlainDecoder and
+    PlainSlotDecoder. Row b of a step reads query position state["pos"][b]
+    + 1 (clamped to the table); ctx_scale: (B,) per-row attention context
+    scales, None for sqrt(T_k)."""
     n_att = cfg.num_attention_layers
     table = params["embed_query_positions"]["w"]
     w_last = core.conv1d_weight(params["last_conv"])[0]
     b_last = params["last_conv"]["b"]
 
     def step_fn(state, x_t):
-        t = state["t"]
-        B = x_t.shape[0]
-        frame_pos = torch.full((B, 1), t + 1, dtype=torch.int64,
-                               device=x_t.device)
-        fpe = sinusoidal_encoding(frame_pos, table, w_query)[:, 0]
+        pos = state["pos"]
+        fpe = sinusoidal_encoding((pos + 1)[:, None], table, w_query)[:, 0]
 
         prenet_states, x = cb.stack_step(params["prenet"], cfg.prenet_specs,
                                          state["prenet"], x_t,
@@ -374,7 +381,8 @@ def make_decoder_step(params, cfg: DecoderConfig, projected_kv, w_query, *,
                 keys_i, values_i = projected_kv[idx]
                 x, align = attn_ops.attention_step(
                     p_attn, attn_spec, x + fpe, keys_i, values_i, mask=mask,
-                    last_attended=new_la[:, idx] if monotonic else None)
+                    last_attended=new_la[:, idx] if monotonic else None,
+                    ctx_scale=ctx_scale)
                 if monotonic:
                     new_la = new_la.clone()
                     new_la[:, idx] = torch.argmax(align, dim=-1)
@@ -384,7 +392,8 @@ def make_decoder_step(params, cfg: DecoderConfig, projected_kv, w_query, *,
         y = x @ w_last + b_last
         done = torch.sigmoid(core.linear_apply(params["fc"], y))[:, 0]
         new_state = {"prenet": prenet_states, "convs": conv_states,
-                     "last_attended": new_la, "t": t + 1}
+                     "last_attended": new_la,
+                     "pos": torch.clamp(pos + 1, max=POS_CAP)}
         return new_state, (torch.sigmoid(y), ave_align / n_att, done, x)
 
     return step_fn

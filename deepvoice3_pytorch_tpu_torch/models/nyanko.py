@@ -15,7 +15,7 @@ from ..ops import attention as attn_ops
 from ..ops import conv_blocks as cb
 from ..ops import core
 from ..ops.positional import position_encoding_init
-from .deepvoice3 import query_position_table
+from .deepvoice3 import POS_CAP, query_position_table
 
 
 # ---------------------------------------------------------------------------
@@ -218,13 +218,14 @@ def decoder_apply(params, cfg: NyankoDecoderConfig, encoder_out, inputs, *,
 
 
 def decoder_init_state(cfg: NyankoDecoderConfig, batch: int, device=None):
-    """Decode state: ring buffers + per-batch last_attended + t."""
+    """Decode state: ring buffers + per-batch last_attended + per-batch
+    positions (frames decoded)."""
     return {
         "audio_encoder": cb.stack_init_state(cfg.audio_encoder, batch, device),
         "audio_decoder": cb.stack_init_state(cfg.audio_decoder, batch, device),
         "last_attended": torch.zeros(batch, 1, dtype=torch.int64,
                                      device=device),
-        "t": 0,
+        "pos": torch.zeros(batch, dtype=torch.int64, device=device),
     }
 
 
@@ -241,9 +242,13 @@ def decoder_precompute(params, cfg: NyankoDecoderConfig, encoder_out, *,
 
 
 def make_decoder_step(params, cfg: NyankoDecoderConfig, projected_kv,
-                      w_query=None, *, speaker_embed=None, mask=None):
-    """step_fn(state, x_t) for ops/fused_decode.PlainDecoder. projected_kv
-    is one (keys, values) pair or a one-element list of it."""
+                      w_query=None, *, speaker_embed=None, mask=None,
+                      ctx_scale=None):
+    """step_fn(state, x_t) for ops/fused_decode.PlainDecoder and
+    PlainSlotDecoder. projected_kv is one (keys, values) pair or a
+    one-element list of it. Row b of a step adds the finished encoding of
+    position state["pos"][b] + 1 (clamped to the table); ctx_scale: (B,)
+    per-row attention context scales, None for sqrt(T_k)."""
     if isinstance(projected_kv, list):
         (projected_kv,) = projected_kv
     keys, values = projected_kv
@@ -253,8 +258,8 @@ def make_decoder_step(params, cfg: NyankoDecoderConfig, projected_kv,
     monotonic = cfg.force_monotonic_attention
 
     def step_fn(state, x_t):
-        t = state["t"]
-        fpe = table[min(t + 1, table.shape[0] - 1)]
+        pos = state["pos"]
+        fpe = _embed_positions(table, pos + 1)
         ae_states, x = cb.stack_step(params["audio_encoder"],
                                      cfg.audio_encoder,
                                      state["audio_encoder"], x_t)
@@ -262,7 +267,8 @@ def make_decoder_step(params, cfg: NyankoDecoderConfig, projected_kv,
         la = state["last_attended"]
         R, align = attn_ops.attention_step(
             params["attention"], cfg.attention_spec, x + fpe, keys, values,
-            mask=mask, last_attended=la[:, 0] if monotonic else None)
+            mask=mask, last_attended=la[:, 0] if monotonic else None,
+            ctx_scale=ctx_scale)
         if monotonic:
             la = torch.argmax(align, dim=-1)[:, None]
         ad_states, x = cb.stack_step(params["audio_decoder"],
@@ -272,7 +278,8 @@ def make_decoder_step(params, cfg: NyankoDecoderConfig, projected_kv,
         y = x @ w_last + b_last
         done = torch.sigmoid(core.linear_apply(params["fc"], y))[:, 0]
         new_state = {"audio_encoder": ae_states, "audio_decoder": ad_states,
-                     "last_attended": la, "t": t + 1}
+                     "last_attended": la,
+                     "pos": torch.clamp(pos + 1, max=POS_CAP)}
         return new_state, (torch.sigmoid(y), align, done, x)
 
     return step_fn

@@ -58,14 +58,16 @@ def project_keys_values(params, spec: AttentionSpec, keys, values):
 
 def attention_apply(params, spec: AttentionSpec, query, keys, values, *,
                     mask=None, last_attended=None, training=False,
-                    generator=None):
+                    generator=None, ctx_scale=None):
     """(B, T_q, C) queries over (B, T_k, E) keys/values, already passed
     through `project_keys_values`.
 
     mask: (B, T_k) True where PADDED. last_attended: (B,) int window centres
     (None = no window). When training, the attention weights are dropped out
-    (rate spec.dropout) before the weighted sum. Returns (out (B, T_q, C),
-    attn (B, T_q, T_k) f32)."""
+    (rate spec.dropout) before the weighted sum. ctx_scale: (B,) per-row
+    context scales in place of sqrt(T_k) (continuous batching keeps each
+    slot's scale at the text length it was admitted at). Returns (out
+    (B, T_q, C), attn (B, T_q, T_k) f32)."""
     residual = query
     x = core.linear_apply(params["query_proj"], query)          # (B, Tq, E)
     scores = x.float() @ keys.float().transpose(1, 2)           # (B, Tq, Tk)
@@ -82,17 +84,20 @@ def attention_apply(params, spec: AttentionSpec, query, keys, values, *,
                      training)
     x = x @ values
     # scale by T_k * sqrt(1/T_k) == sqrt(T_k), T_k the PADDED length
-    s = values.shape[1]
-    x = x * (s * math.sqrt(1.0 / s))
+    if ctx_scale is None:
+        s = values.shape[1]
+        x = x * (s * math.sqrt(1.0 / s))
+    else:
+        x = x * ctx_scale.to(x.dtype)[:, None, None]
     x = core.linear_apply(params["out_proj"], x)
     return (x + residual) * math.sqrt(0.5), attn
 
 
 def attention_step(params, spec: AttentionSpec, query, keys, values, *,
-                   mask=None, last_attended=None):
+                   mask=None, last_attended=None, ctx_scale=None):
     """One decode step. query (B, C) -> (out (B, C), attn (B, T_k)); keys
     and values already projected."""
     out, attn = attention_apply(
         params, spec, query[:, None, :], keys, values, mask=mask,
-        last_attended=last_attended)
+        last_attended=last_attended, ctx_scale=ctx_scale)
     return out[:, 0], attn[:, 0]

@@ -20,6 +20,17 @@ time from an explicit `DecodeCarry` (previous frame, last_attended, ring
 buffers), so a streaming caller can resume a decode where it stopped.
 `PlainDecoder` has the same interface over the plain step for CPU tensors;
 `make_decoder` picks the one for the inputs' device.
+
+Continuous batching (serving.py) decodes a batch of slots, each at its own
+point of its own utterance. `SlotDecoder` is B1 in its serving modes: the
+plan is folded once per engine, the per-slot inputs (`SlotInputs`: K/V,
+additive mask, position rates, speaker biases, context scales) belong to
+the caller, which rewrites one row at each admission (`write_slot_row`) and
+pads the text dimension when a longer text arrives (`grow_slot_inputs`;
+the ring placement follows the new Tk at the next launch), and every row
+reads the position-table row of its own decoded count, which the launch
+advances (`SlotCarry.pos`). `PlainSlotDecoder` is its plain version with
+the same interface; `make_slot_decoder` picks the one for the device.
 """
 
 import ctypes
@@ -58,6 +69,13 @@ class DecodeCarry(NamedTuple):
     prev: Any             # (B, out_dim) f32 previous frame
     last_attended: Any    # (B, max(n_att, 1)) int32
     ring: Any             # (B, ring_floats) f32, ring buffers in logical order
+
+
+class SlotCarry(NamedTuple):
+    prev: Any             # (S, out_dim) f32 previous frame
+    last_attended: Any    # (S, max(n_att, 1)) int32
+    ring: Any             # (S, ring_floats) f32, ring buffers in logical order
+    pos: Any              # (S,) int32 frames each slot has decoded
 
 
 def family(cfg):
@@ -265,6 +283,42 @@ def place_rings(buffers, budget_floats):
     return tuple(placed), smem, scratch
 
 
+def _placement(plan, C, E, tk, n_la, dev, smem_budget):
+    """Ring placement of `plan` at text length tk under smem_budget bytes
+    (None: the device's limit per block), checked against the kernel's own
+    layout. Returns (bufs (n_buf, BUF_WORDS) int32 on dev, shared ring
+    floats, scratch floats). A plan whose fixed part alone exceeds the
+    budget raises."""
+    lib = KERNEL.lib
+    if smem_budget is None:
+        smem_budget = lib.dv3_fused_decode_max_smem(dev.index or 0)
+        if smem_budget <= 0:
+            KERNEL.check(-smem_budget, "shared memory per block")
+    fixed = smem_floats(plan.act_dim, plan.cat_dim, C, E, tk,
+                        len(plan.buffers), n_la)
+    if 4 * fixed > smem_budget:
+        raise ValueError(
+            "fused_decode: the plan needs %d bytes of shared memory "
+            "besides its ring buffers, more than the %d bytes a block "
+            "may have" % (4 * fixed, smem_budget))
+    placed, ring_smem, scratch_floats = place_rings(
+        plan.buffers, smem_budget // 4 - fixed)
+    bufs = torch.tensor(
+        [[r, c, off, loc, sm] for (r, c, off), (loc, sm)
+         in zip(plan.buffers, placed)] or [[0] * BUF_WORDS],
+        dtype=torch.int32, device=dev)
+    want = 4 * (fixed + ring_smem)
+    got = lib.dv3_fused_decode_smem_bytes(ctypes.byref(_Args(
+        n_buf=len(plan.buffers), Tk=tk, E=E, C=C, n_la=n_la,
+        ring_smem_floats=ring_smem, act_dim=plan.act_dim,
+        cat_dim=plan.cat_dim)))
+    if got != want:
+        raise RuntimeError("fused_decode: the kernel's shared-memory "
+                           "layout (%d bytes) differs from the host's "
+                           "(%d)" % (got, want))
+    return bufs, ring_smem, scratch_floats
+
+
 # ---------------------------------------------------------------------------
 # kernel binding
 # ---------------------------------------------------------------------------
@@ -280,7 +334,8 @@ class _Args(ctypes.Structure):
             "ring_floats", "ring_smem_floats", "scratch_floats", "sp_width",
             "fpe_raw", "T_total", "t0", "steps", "last_w", "last_b", "fc_w",
             "fc_b", "act_dim", "cat_dim")]
-        + [("ctx_scale", ctypes.c_float)])
+        + [("ctx_scale", ctypes.c_float), ("pos", ctypes.c_void_p),
+           ("row_scale", ctypes.c_void_p), ("fpe_rows", ctypes.c_int)])
 
 
 KERNEL = _build.Kernel("fused_decode.cu", {
@@ -305,14 +360,16 @@ def _ptr(t):
 
 
 class _Decoder:
-    """What both launch-and-carry decoders share: B, tk, C, out_dim, dtype
-    and device are set by the subclass."""
+    """What the launch-and-carry decoders share: B, tk, C, out_dim, dtype
+    and device are set by the subclass (a slot decoder passes the text
+    length of its inputs as tk)."""
 
-    def new_outputs(self, total):
+    def new_outputs(self, total, tk=None):
         """Zeroed (outputs, alignments, done, decoder_states) buffers."""
         z = dict(device=self.device, dtype=self.dtype)
         return (torch.zeros(self.B, total, self.out_dim, **z),
-                torch.zeros(self.B, total, self.tk, **z),
+                torch.zeros(self.B, total, self.tk if tk is None else tk,
+                            **z),
                 torch.zeros(self.B, total, **z),
                 torch.zeros(self.B, total, self.C, **z))
 
@@ -383,35 +440,10 @@ class FusedDecoder(_Decoder):
         _check(self.fpe, "fpe_table", (n_steps, self.C), f32, dev)
 
         # ring placement under the shared-memory budget
-        lib = KERNEL.lib
-        if smem_budget is None:
-            smem_budget = lib.dv3_fused_decode_max_smem(dev.index or 0)
-            if smem_budget <= 0:
-                KERNEL.check(-smem_budget, "shared memory per block")
-        fixed = smem_floats(p.act_dim, p.cat_dim, self.C, self.E, self.tk,
-                            len(p.buffers), self.n_la)
-        if 4 * fixed > smem_budget:
-            raise ValueError(
-                "fused_decode: the plan needs %d bytes of shared memory "
-                "besides its ring buffers, more than the %d bytes a block "
-                "may have" % (4 * fixed, smem_budget))
-        placed, self.ring_smem, self.scratch_floats = place_rings(
-            p.buffers, smem_budget // 4 - fixed)
-        self.bufs = torch.tensor(
-            [[r, c, off, loc, sm] for (r, c, off), (loc, sm)
-             in zip(p.buffers, placed)] or [[0] * BUF_WORDS],
-            dtype=torch.int32, device=dev)
+        self.bufs, self.ring_smem, self.scratch_floats = _placement(
+            p, self.C, self.E, self.tk, self.n_la, dev, smem_budget)
         self.scratch = (torch.empty(self.B, self.scratch_floats, device=dev)
                         if self.scratch_floats else None)
-        want = 4 * (fixed + self.ring_smem)
-        got = lib.dv3_fused_decode_smem_bytes(ctypes.byref(_Args(
-            n_buf=len(p.buffers), Tk=self.tk, E=self.E, C=self.C,
-            n_la=self.n_la, ring_smem_floats=self.ring_smem,
-            act_dim=p.act_dim, cat_dim=p.cat_dim)))
-        if got != want:
-            raise RuntimeError("fused_decode: the kernel's shared-memory "
-                               "layout (%d bytes) differs from the host's "
-                               "(%d)" % (got, want))
 
     def zero_carry(self, initial_input):
         return DecodeCarry(
@@ -462,7 +494,7 @@ class FusedDecoder(_Decoder):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = KERNEL.lib.dv3_fused_decode(ctypes.byref(args), stream,
                                          dev.index or 0)
-        KERNEL.launches += 1
+        KERNEL.launched("chunk")
         KERNEL.check(rc, "fused_decode launch")
 
 
@@ -471,9 +503,9 @@ class PlainDecoder(_Decoder):
     family's `make_decoder_step`): the plain version of kernel B1, which CPU
     tensors take, so that a caller that drives a decode chunk by chunk
     (streaming.tts_stream) is one piece of code on both devices. It runs in
-    the dtype of the inputs. The carry is a dict: the previous frame and
-    the step state (ring buffers, last_attended, frame index); `launch`
-    replaces its entries."""
+    the dtype of the inputs. The carry is a dict: the previous frame, the
+    step state (ring buffers, last_attended, per-row positions) and the
+    frame index t; `launch` replaces its entries."""
 
     def __init__(self, params, cfg, inputs, mask, n_steps):
         keys0 = next(p for p in inputs["projected_kv"] if p is not None)[0]
@@ -492,7 +524,7 @@ class PlainDecoder(_Decoder):
             speaker_embed=inputs.get("speaker_embed"), mask=mask)
 
     def zero_carry(self, initial_input):
-        return {"prev": initial_input.clone(),
+        return {"prev": initial_input.clone(), "t": 0,
                 "state": self.fam.decoder_init_state(self.cfg, self.B,
                                                      self.device)}
 
@@ -502,18 +534,24 @@ class PlainDecoder(_Decoder):
     def launch(self, carry, outputs, t0, steps):
         """Run frames t0 .. t0+steps-1 from `carry` into `outputs`."""
         total = outputs[0].shape[1]
-        if carry["state"]["t"] != t0 or t0 + steps > min(total,
-                                                         self.n_steps):
+        if carry["t"] != t0 or t0 + steps > min(total, self.n_steps):
             raise ValueError("frames %d..%d do not follow the carry (frame "
                              "%d) or exceed the buffers (%d)" % (
-                                 t0, t0 + steps, carry["state"]["t"], total))
-        state, prev = carry["state"], carry["prev"]
-        for t in range(t0, t0 + steps):
-            state, outs = self.step_fn(state, prev)
-            for buf, o in zip(outputs, outs):
-                buf[:, t] = o
-            prev = outs[0]
-        carry["state"], carry["prev"] = state, prev
+                                 t0, t0 + steps, carry["t"], total))
+        _plain_steps(self.step_fn, carry, outputs, t0, steps)
+        carry["t"] = t0 + steps
+
+
+def _plain_steps(step_fn, carry, outputs, t0, steps):
+    """`steps` plain steps from carry {"prev", "state"} into frames t0 ..
+    of outputs; replaces the carry's entries."""
+    state, prev = carry["state"], carry["prev"]
+    for t in range(t0, t0 + steps):
+        state, outs = step_fn(state, prev)
+        for buf, o in zip(outputs, outs):
+            buf[:, t] = o
+        prev = outs[0]
+    carry["state"], carry["prev"] = state, prev
 
 
 def make_decoder(params, cfg, inputs, mask, n_steps):
@@ -523,6 +561,273 @@ def make_decoder(params, cfg, inputs, mask, n_steps):
     if kv.device.type == "cpu":
         return PlainDecoder(params, cfg, inputs, mask, n_steps)
     return FusedDecoder(params, cfg, inputs, mask, n_steps)
+
+
+# ---------------------------------------------------------------------------
+# the serving modes: a batch of slots, each at its own point of its utterance
+# ---------------------------------------------------------------------------
+
+
+class SlotInputs(NamedTuple):
+    """Per-slot decode inputs, owned by the caller: every row is rewritten
+    at its slot's admission (`write_slot_row`), the text dimension grows
+    with `grow_slot_inputs`. Rows of free slots hold whatever their last
+    occupant left; they decode garbage nobody reads."""
+    kv: Any               # (n_att, 2, S, Tk, E) f32 projected keys, values
+    addmask: Any          # (S, Tk) f32: 0 valid, MASK padded
+    w_query: Any          # (S,) f32 query position rates, None for nyanko
+    speaker_bias: Any     # (n_sp, S, width) f32 softsign biases, or None
+    speaker_embed: Any    # (S, D) speaker embeddings (plain step), or None
+    ctx_scale: Any        # (S,) f32 attention context scales
+
+
+def slot_inputs(fi, n_slots, tk):
+    """Zeroed SlotInputs of n_slots rows and text length tk, shaped like
+    the batch-1 inputs `fi` (a family's `fused_decode_inputs`) and in the
+    dtype of its keys: masked everywhere, rates and scales 1."""
+    kv = [p for p in fi["projected_kv"] if p is not None]
+    E = kv[0][0].shape[-1]
+    z = dict(device=kv[0][0].device, dtype=kv[0][0].dtype)
+    bias = fi.get("speaker_bias") or []
+    se = fi.get("speaker_embed")
+    return SlotInputs(
+        torch.zeros(len(kv), 2, n_slots, tk, E, **z),
+        torch.full((n_slots, tk), MASK, **z),
+        torch.ones(n_slots, **z) if fi["fpe_raw"] else None,
+        torch.zeros(len(bias), n_slots, max(b.shape[-1] for b in bias),
+                    **z) if bias else None,
+        None if se is None else torch.zeros(n_slots, se.shape[-1], **z),
+        torch.ones(n_slots, **z))
+
+
+def write_slot_row(si, b, fi, mask, ctx_scale):
+    """Row b of si <- the batch-1 inputs fi with its (1, tk) padding mask
+    (K/V and mask right-padded to si's text length, masked there) and the
+    context scale ctx_scale, a float rounded to f32 as the kernel's scalar
+    is. In place."""
+    tk = mask.shape[1]
+    kv = [p for p in fi["projected_kv"] if p is not None]
+    for i, (k, v) in enumerate(kv):
+        si.kv[i, 0, b, :tk] = k[0]
+        si.kv[i, 1, b, :tk] = v[0]
+        si.kv[i, :, b, tk:] = 0.0
+    si.addmask[b] = MASK
+    si.addmask[b, :tk] = torch.where(mask[0], MASK, 0.0)
+    if si.w_query is not None:
+        si.w_query[b] = fi["w_query"][0]
+    for i, bias in enumerate(fi.get("speaker_bias") or []):
+        si.speaker_bias[i, b, :bias.shape[-1]] = bias[0]
+    if si.speaker_embed is not None:
+        si.speaker_embed[b] = fi["speaker_embed"][0]
+    si.ctx_scale[b] = ctx_scale
+
+
+def grow_slot_inputs(si, tk):
+    """si with its text dimension padded to tk: zero keys and values,
+    masked, so every slot decodes as before (its softmax weight there is
+    exactly 0 and its context scale is its own)."""
+    grow = tk - si.addmask.shape[1]
+    if grow <= 0:
+        raise ValueError("text length %d does not grow %d"
+                         % (tk, si.addmask.shape[1]))
+    kv = torch.cat([si.kv, si.kv.new_zeros(si.kv.shape[:3] + (grow,)
+                                           + si.kv.shape[4:])], dim=3)
+    addmask = torch.cat([si.addmask, si.addmask.new_full(
+        (si.addmask.shape[0], grow), MASK)], dim=1)
+    return si._replace(kv=kv, addmask=addmask)
+
+
+class SlotDecoder(_Decoder):
+    """Kernel B1 in its serving modes over a batch of n_slots rows: the
+    plan with folded weights is built once; `launch` takes the caller's
+    SlotInputs, reads each row's position-table row from the row's own
+    decoded count (the whole table: raw angles with the row's rate, or
+    finished encodings), scales each row's context by its own scale, and
+    advances the counts in the kernel. The ring placement is recomputed
+    whenever the inputs' text length changes (Tk is part of the shared-
+    memory layout); the carry keeps its logical-order rings across it.
+    `smem_budget`: bytes of shared memory for the placement, None for the
+    device's limit per block (the card tests lower it)."""
+
+    def __init__(self, params, cfg, n_slots, device):
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError("SlotDecoder runs on CUDA tensors only (got %s)"
+                             % device)
+        self.device, self.dtype = device, torch.float32
+        self.plan = build_plan(params, cfg)
+        self.B = n_slots
+        self.C = state_dim(cfg)
+        self.out_dim = cfg.in_dim * cfg.r
+        self.n_la = max(self.plan.n_att, 1)
+        self.ring_floats = sum(r * c for r, c, _ in self.plan.buffers)
+        self.sp_width = max(self.plan.sp_widths or (0,))
+        self.fpe_raw = family(cfg) is dv3
+        self.table = params["embed_query_positions"]["w"].float() \
+            .contiguous()
+        _check(self.table, "position table", (self.table.shape[0], self.C),
+               torch.float32, device)
+        if self.plan.act_dim > 4 * _THREADS:
+            raise ValueError("fused_decode: widths above %d are not supported"
+                             % (4 * _THREADS))
+        self.smem_budget = None
+        self.tk = self.E = None
+
+    def _place(self, tk, E):
+        self.bufs, self.ring_smem, self.scratch_floats = _placement(
+            self.plan, self.C, E, tk, self.n_la, self.device,
+            self.smem_budget)
+        self.scratch = (torch.empty(self.B, self.scratch_floats,
+                                    device=self.device)
+                        if self.scratch_floats else None)
+        self.tk, self.E = tk, E
+
+    def zero_carry(self):
+        z = dict(device=self.device)
+        i32 = torch.int32
+        return SlotCarry(torch.zeros(self.B, self.out_dim, **z),
+                         torch.zeros(self.B, self.n_la, dtype=i32, **z),
+                         torch.zeros(self.B, self.ring_floats, **z),
+                         torch.zeros(self.B, dtype=i32, **z))
+
+    def reset_row(self, carry, b):
+        """A fresh stream in slot b: zero its carry row (in place)."""
+        for t in carry:
+            t[b] = 0
+
+    def positions(self, carry):
+        return carry.pos
+
+    def launch(self, inputs, carry, outputs, steps):
+        """Run `steps` frames of every slot from `carry` into frames 0 ..
+        steps-1 of `outputs` (new_outputs(steps, Tk)); updates `carry` in
+        place, its positions included."""
+        f32, i32, dev = torch.float32, torch.int32, self.device
+        p, S = self.plan, self.B
+        n_att, tk, E = (inputs.kv.shape[0], inputs.kv.shape[3],
+                        inputs.kv.shape[4])
+        if n_att != p.n_att:
+            raise ValueError("need %d K/V pairs, got %d" % (p.n_att, n_att))
+        _check(inputs.kv, "kv", (n_att, 2, S, tk, E), f32, dev)
+        _check(inputs.addmask, "addmask", (S, tk), f32, dev)
+        _check(inputs.ctx_scale, "ctx_scale", (S,), f32, dev)
+        if self.fpe_raw:
+            _check(inputs.w_query, "w_query", (S,), f32, dev)
+        if p.sp_widths:
+            _check(inputs.speaker_bias, "speaker_bias",
+                   (len(p.sp_widths), S, self.sp_width), f32, dev)
+        _check(carry.prev, "prev", (S, self.out_dim), f32, dev)
+        _check(carry.last_attended, "last_attended", (S, self.n_la), i32,
+               dev)
+        _check(carry.ring, "ring", (S, self.ring_floats), f32, dev)
+        _check(carry.pos, "pos", (S,), i32, dev)
+        out, align, done, dstate = outputs
+        _check(out, "outputs", (S, steps, self.out_dim), f32, dev)
+        _check(align, "alignments", (S, steps, tk), f32, dev)
+        _check(done, "done", (S, steps), f32, dev)
+        _check(dstate, "decoder_states", (S, steps, self.C), f32, dev)
+        if (tk, E) != (self.tk, self.E):
+            self._place(tk, E)
+        args = _Args(
+            p.ops.data_ptr(), self.bufs.data_ptr(), p.weights.data_ptr(),
+            self.table.data_ptr(),
+            _ptr(inputs.w_query if self.fpe_raw else None),
+            inputs.addmask.data_ptr(), inputs.kv.data_ptr(),
+            _ptr(inputs.speaker_bias if p.sp_widths else None),
+            carry.prev.data_ptr(), carry.last_attended.data_ptr(),
+            carry.ring.data_ptr(), _ptr(self.scratch), out.data_ptr(),
+            align.data_ptr(), done.data_ptr(), dstate.data_ptr(),
+            p.ops.shape[0], len(p.buffers), S, tk, E, self.C, self.out_dim,
+            p.n_att, self.n_la, self.ring_floats, self.ring_smem,
+            self.scratch_floats, self.sp_width, int(self.fpe_raw), steps, 0,
+            steps, p.last[0], p.last[1], p.fc[0], p.fc[1], p.act_dim,
+            p.cat_dim, 1.0, carry.pos.data_ptr(),
+            inputs.ctx_scale.data_ptr(), self.table.shape[0])
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = KERNEL.lib.dv3_fused_decode(ctypes.byref(args), stream,
+                                         dev.index or 0)
+        KERNEL.launched("slots")
+        KERNEL.check(rc, "fused_decode launch (slots)")
+
+
+class PlainSlotDecoder(_Decoder):
+    """`SlotDecoder`'s interface over the plain step (the family's
+    `make_decoder_step` with per-row positions and context scales): the
+    plain version of B1's serving modes, which CPU tensors take. It runs in
+    `dtype` (the kernel's comparisons run a float64 one). The carry is a
+    dict: the previous frame and the step state, whose `pos` holds each
+    row's decoded count."""
+
+    def __init__(self, params, cfg, n_slots, device, dtype=torch.float32):
+        self.params, self.cfg = params, cfg
+        self.fam = family(cfg)
+        self.device, self.dtype = torch.device(device), dtype
+        self.B = n_slots
+        self.C = state_dim(cfg)
+        self.out_dim = cfg.in_dim * cfg.r
+        self.att = ([0] if self.fam is nk else
+                    [i for i, s in enumerate(cfg.attention_specs)
+                     if s is not None])
+        self.n_layers = 1 if self.fam is nk else len(cfg.attention_specs)
+
+    def zero_carry(self):
+        state = self.fam.decoder_init_state(self.cfg, self.B, self.device)
+        return {"prev": torch.zeros(self.B, self.out_dim, device=self.device,
+                                    dtype=self.dtype),
+                "state": _tree_map(lambda t: t.to(self.dtype)
+                                   if t.is_floating_point() else t, state)}
+
+    def reset_row(self, carry, b):
+        """A fresh stream in slot b: zero its carry row (in place)."""
+        _tree_map(lambda t: t.__setitem__(b, 0), carry)
+
+    def positions(self, carry):
+        return carry["state"]["pos"]
+
+    def launch(self, inputs, carry, outputs, steps):
+        """Run `steps` frames of every slot from `carry` into frames 0 ..
+        steps-1 of `outputs`; writes the carry's rows in place.
+
+        One row at a time, as the kernel runs each row in a thread block
+        of its own: a row's numbers then do not depend on the other slots,
+        and a slot equals a fresh batch-1 stream of the plain version bit
+        for bit (a batched matmul sums in an order that depends on the
+        batch, and the emission's Griffin-Lim amplifies one-ulp
+        differences through its bf16 operands)."""
+        for b in range(self.B):
+            row = slice(b, b + 1)
+            kv = [None] * self.n_layers
+            for j, i in enumerate(self.att):
+                kv[i] = (inputs.kv[j, 0, row], inputs.kv[j, 1, row])
+            se = inputs.speaker_embed
+            step_fn = self.fam.make_decoder_step(
+                self.params, self.cfg, kv,
+                None if inputs.w_query is None else inputs.w_query[row],
+                speaker_embed=None if se is None else se[row],
+                mask=inputs.addmask[row] < 0, ctx_scale=inputs.ctx_scale[row])
+            sub = _tree_map(lambda t: t[row], carry)
+            _plain_steps(step_fn, sub, [o[row] for o in outputs], 0, steps)
+            _tree_map(lambda t, u: t.__setitem__(row, u), carry, sub)
+
+
+def _tree_map(fn, tree, *rest):
+    """fn over the tensors of a carry tree (dicts, lists, tensors, None)
+    and of trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, *vs) for vs in zip(tree, *rest)]
+    return None if tree is None else fn(tree, *rest)
+
+
+def make_slot_decoder(params, cfg, n_slots, device):
+    """The serving decoder for `device`: `SlotDecoder` (kernel B1) on
+    CUDA, `PlainSlotDecoder` on the CPU."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return PlainSlotDecoder(params, cfg, n_slots, device)
+    return SlotDecoder(params, cfg, n_slots, device)
 
 
 # ---------------------------------------------------------------------------

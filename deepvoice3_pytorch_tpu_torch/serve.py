@@ -1,7 +1,9 @@
 # coding: utf-8
-"""Streaming TTS over HTTP, counterpart of the root serve.py's lock mode:
-one utterance at a time, each streamed as chunked-transfer WAV while
-`streaming.tts_stream` produces it.
+"""Streaming TTS over HTTP, counterpart of the root serve.py: each request
+is streamed as chunked-transfer WAV while it is synthesized, either one
+utterance at a time (`streaming.tts_stream`, slots=0) or by continuous
+batching (`serving.ContinuousBatcher`, slots=N: up to N utterances decode
+together, new requests join at chunk boundaries).
 
 Endpoints (`make_handler`):
     GET /tts?text=...[&speaker_id=N]
@@ -11,10 +13,15 @@ Endpoints (`make_handler`):
     GET /healthz        200 "ok"
     GET /stats          JSON: request counts, streams in flight, time to
                         first audio (last 512 requests: mean/p50/p95),
-                        audio seconds produced, uptime
+                        audio seconds produced, uptime; with slots, the
+                        slot count, the waiting backlog, the active slots
+                        and the batcher's time per step phase
 
-The engine runs where the parameters live. Continuous batching (`slots`)
-and the command line, which loads a checkpoint, are not ported yet.
+With slots, admission control sheds a request once max_backlog requests
+wait for a slot: HTTP 503 with Retry-After, counted as rejected.
+
+The engine runs where the parameters live. The command line, which loads a
+checkpoint, is not ported yet.
 """
 
 import collections
@@ -29,6 +36,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from . import streaming
+from .serving import BacklogFull, ContinuousBatcher
 
 
 def wav_stream_header(sample_rate, bits=16, channels=1):
@@ -49,40 +57,57 @@ def pcm16(x):
 
 
 class TTSEngine:
-    """Model + streaming pipeline, one utterance at a time.
+    """Model + streaming pipeline.
 
-    One producer thread, started here, synthesizes the requests in the
-    order they came; each request's generator reads its chunks from a queue
-    of its own, so a slow client never holds back the producer. The JAX
-    engine starts a thread per request; here that would cost time to first
-    audio, because PyTorch keeps per-thread state (cuDNN's execution plans,
-    library handles) that every new thread builds again (chip_smoke.py
-    phase `serve` measures a stream's first audio in fresh threads against
-    the calling thread)."""
+    slots=0: one utterance at a time. One producer thread, started here,
+    synthesizes the requests in the order they came; each request's
+    generator reads its chunks from a queue of its own, so a slow client
+    never holds back the producer. The JAX engine starts a thread per
+    request; here that would cost time to first audio, because PyTorch
+    keeps per-thread state (cuDNN's execution plans, library handles) that
+    every new thread builds again (chip_smoke.py phase `serve` measures a
+    stream's first audio in fresh threads against the calling thread).
+
+    slots=N: continuous batching. One worker thread, started here, runs
+    the batcher's loop; the warm-up request goes through it too, so that
+    the per-thread state is built on the thread that serves."""
 
     def __init__(self, params, cfg, ap, frontend_mod, max_decoder_steps,
-                 slots=0):
-        if slots:
-            raise NotImplementedError(
-                "continuous batching (slots > 0) is not ported yet; it comes "
-                "with the serving slice (serving.ContinuousBatcher)")
+                 slots=0, text_pad=64, max_backlog=None):
         self.params = params
         self.cfg = cfg
         self.ap = ap
         self.frontend = frontend_mod
         self.max_decoder_steps = max_decoder_steps
-        self._jobs = queue.Queue()
-        threading.Thread(target=self._produce, daemon=True).start()
+        self.batcher = None
+        self._stop = threading.Event()
+        if slots:
+            self.batcher = ContinuousBatcher(
+                params, cfg, ap, frontend_mod, n_slots=slots,
+                text_pad=text_pad, max_decoder_steps=max_decoder_steps,
+                max_backlog=max_backlog)
+            self._worker = threading.Thread(
+                target=self.batcher.run_loop, args=(self._stop,),
+                daemon=True)
+        else:
+            self._jobs = queue.Queue()
+            self._worker = threading.Thread(target=self._produce,
+                                            daemon=True)
+        self._worker.start()
         self._t_start = time.time()
         self._stats_lock = threading.Lock()
         self._counts = {"requests_total": 0, "requests_failed": 0,
-                        "requests_disconnected": 0, "active_streams": 0,
-                        "audio_seconds_total": 0.0}
+                        "requests_rejected": 0, "requests_disconnected": 0,
+                        "active_streams": 0, "audio_seconds_total": 0.0}
         self._ttfa_ms = collections.deque(maxlen=512)
 
     def shutdown(self):
-        """Stop the producer thread once the queued requests are done."""
-        self._jobs.put(None)
+        """Stop the worker: the producer once the queued requests are done,
+        the batcher's loop after its current step."""
+        if self.batcher is None:
+            self._jobs.put(None)
+        else:
+            self._stop.set()
 
     def warmup(self):
         # _stream_inner directly: the warm-up request stays out of the
@@ -104,13 +129,22 @@ class TTSEngine:
                 "p50": round(ttfa[n // 2], 1),
                 "p95": round(ttfa[min(n - 1, int(0.95 * n))], 1),
             }
-        s["slots"] = 0
+        s["slots"] = self.batcher.n_slots if self.batcher else 0
+        if self.batcher is not None:
+            # backlog: the waiting queue alone (what max_backlog is
+            # compared with); the occupied slots separately
+            s["backlog"] = self.batcher.waiting()
+            s["active_slots"] = self.batcher.active_slots()
+            # cumulative wall time per step phase: launches, the one
+            # synchronisation, host DSP, retirements
+            s["step_phase_ms"] = self.batcher.timing()
         s["uptime_s"] = round(time.time() - self._t_start, 1)
         return s
 
     def stream(self, text, speaker_id=None):
-        """_stream_inner plus serving metrics: request and failure counts,
-        streams in flight, time to first audio, audio seconds produced."""
+        """_stream_inner plus serving metrics: request, failure and
+        rejection counts, streams in flight, time to first audio, audio
+        seconds produced."""
         t0 = time.perf_counter()
         with self._stats_lock:
             self._counts["requests_total"] += 1
@@ -131,9 +165,11 @@ class TTSEngine:
             with self._stats_lock:
                 self._counts["requests_disconnected"] += 1
             raise
-        except BaseException:
+        except BaseException as e:
+            key = ("requests_rejected" if isinstance(e, BacklogFull)
+                   else "requests_failed")
             with self._stats_lock:
-                self._counts["requests_failed"] += 1
+                self._counts[key] += 1
             raise
         finally:
             with self._stats_lock:
@@ -170,10 +206,14 @@ class TTSEngine:
 
     def _stream_inner(self, text, speaker_id=None):
         """Yields float32 sample chunks of one utterance, trimmed to the
-        decoded length, as the producer thread makes them."""
-        spk = None if speaker_id is None else [int(speaker_id)]
-        q = queue.Queue()
-        self._jobs.put((text, spk, q))
+        decoded length, as the producer thread or the batcher makes them."""
+        if self.batcher is not None:
+            q = self.batcher.submit(
+                text, None if speaker_id is None else int(speaker_id))
+        else:
+            spk = None if speaker_id is None else [int(speaker_id)]
+            q = queue.Queue()
+            self._jobs.put((text, spk, q))
         while True:
             try:
                 kind, payload = q.get(timeout=600)
@@ -225,6 +265,15 @@ def make_handler(engine):
             try:
                 gen = engine.stream(text, speaker_id=speaker)
                 first = next(gen, None)
+            except BacklogFull as e:    # admission control: shed
+                body = json.dumps({"error": str(e)}).encode()
+                self.send_response(503)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Retry-After", "1")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+                return
             except Exception as e:  # synthesis errors as HTTP 500
                 self._json(500, {"error": str(e)})
                 return

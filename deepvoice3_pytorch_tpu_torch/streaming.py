@@ -118,6 +118,32 @@ def launch_chunk(dec, carry, outputs, t0, steps):
 # ---------------------------------------------------------------------------
 
 
+def gl_window(ap, spec, prev_spec, iters):
+    """One vocoder window, shared by StreamingVocoder and the continuous-
+    batching emission (serving.py): denormalize + power, the anchored SPSI
+    start, then Griffin-Lim (kernel B2 on the card) with the context frames
+    pinned. spec: (B, n, F) normalized linear frames whose first n_ctx
+    frames are context; prev_spec: their retrieved (re, im), each (B,
+    n_ctx, F), or None. Returns (waveform, retrieved (re, im))."""
+    fft, hop = ap.fft_size, ap.hop_size
+    S = ap._denorm_pow(spec.float())
+    phi = dsp.spsi_phase(S, fft, hop)
+    n_ctx = 0
+    if prev_spec is not None:
+        pre, pim = prev_spec
+        n_ctx = pre.shape[1]
+        delta = torch.atan2(pim[:, -1], pre[:, -1]) - phi[:, n_ctx - 1]
+        phi = phi + delta[:, None, :]
+        i_re = torch.cat([pre, (S * torch.cos(phi))[:, n_ctx:]], dim=1)
+        i_im = torch.cat([pim, (S * torch.sin(phi))[:, n_ctx:]], dim=1)
+    else:
+        i_re, i_im = S * torch.cos(phi), S * torch.sin(phi)
+    return gl_cuda.griffin_lim(
+        S, fft, hop, ap.window_np, n_iters=iters, momentum=ap.gl_momentum,
+        mats=ap.mats(S.device), init_spec=(i_re, i_im), n_pinned=n_ctx,
+        return_spec=True)
+
+
 class StreamingVocoder:
     """Incremental normalized linear spectrogram -> waveform.
 
@@ -155,27 +181,7 @@ class StreamingVocoder:
                                  dtype=np.float32)
 
     def _gl(self, spec, prev_spec):
-        """One window: denormalize + power, the anchored start, then
-        Griffin-Lim with the context frames pinned. Returns (waveform,
-        retrieved (re, im))."""
-        ap = self.ap
-        fft, hop = ap.fft_size, ap.hop_size
-        S = ap._denorm_pow(spec.float())
-        phi = dsp.spsi_phase(S, fft, hop)
-        n_ctx = 0
-        if prev_spec is not None:
-            pre, pim = prev_spec
-            n_ctx = pre.shape[1]
-            delta = torch.atan2(pim[:, -1], pre[:, -1]) - phi[:, n_ctx - 1]
-            phi = phi + delta[:, None, :]
-            i_re = torch.cat([pre, (S * torch.cos(phi))[:, n_ctx:]], dim=1)
-            i_im = torch.cat([pim, (S * torch.sin(phi))[:, n_ctx:]], dim=1)
-        else:
-            i_re, i_im = S * torch.cos(phi), S * torch.sin(phi)
-        return gl_cuda.griffin_lim(
-            S, fft, hop, ap.window_np, n_iters=self.iters,
-            momentum=ap.gl_momentum, mats=ap.mats(S.device),
-            init_spec=(i_re, i_im), n_pinned=n_ctx, return_spec=True)
+        return gl_window(self.ap, spec, prev_spec, self.iters)
 
     def _iir(self, x):
         from scipy.signal import lfilter

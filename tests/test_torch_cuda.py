@@ -7,7 +7,10 @@ save_q / linear2, speaker biases, finished position encodings), ring
 buffers placed in device memory under a small shared-memory budget and at
 the nyanko preset's width, tile edges of the Griffin-Lim GEMMs, its streaming
 modes (given start, pinned frames, returned spectrum) and unfolded
-windows, a tiny model's stream on the card against the CPU, and the ragged
+windows, a tiny model's stream on the card against the CPU, B1's serving
+modes (per-row positions and context scales, a text-bucket growth between
+launches, a ring placement that changes with the bucket), a tiny model's
+continuous batcher on the card against the CPU, and the ragged
 edges of the tap-accumulating conv (T, C, N off the tiles, B = 1, taps
 wholly in the pad) with the determinism of its weight gradient.
 
@@ -254,6 +257,153 @@ def test_fused_decode_carry_resumes(dev):
     dec.launch(c2, o2, 6, 4)
     for a, b in zip(o1 + tuple(c1), o2 + tuple(c2)):
         assert torch.equal(a, b)
+
+
+def _slot_inputs(fi, lengths, Tk, scales):
+    """SlotInputs with row b = row b of the batched inputs fi."""
+    mask = core.get_mask_from_lengths(lengths, Tk)
+    B = mask.shape[0]
+
+    def row(b):
+        one = slice(b, b + 1)
+        return dict(fi, projected_kv=[
+            None if p is None else (p[0][one], p[1][one])
+            for p in fi["projected_kv"]],
+            w_query=None if fi["w_query"] is None else fi["w_query"][one],
+            speaker_bias=[x[one] for x in fi["speaker_bias"] or []],
+            speaker_embed=(None if fi.get("speaker_embed") is None
+                           else fi["speaker_embed"][one]))
+
+    si = fd.slot_inputs(row(0), B, Tk)
+    for b in range(B):
+        fd.write_slot_row(si, b, row(b), mask[b:b + 1], scales[b])
+    return si
+
+
+def _slot_pair(dev, name, B=4, Tk=12):
+    """Kernel and plain slot decoders over one family's tiny decoder, slot
+    inputs at their own scales, both carries at positions (0, 5, 30, 60):
+    the last row runs past the 64-row table within a launch."""
+    if name == "deepvoice3":
+        cfg, pd, enc, pos, lengths = _decoder(dev, B=B, Tk=Tk)
+        fi = dv3.fused_decode_inputs(pd, cfg.decoder, enc, pos)
+    else:
+        cfg, pd, fi, lengths = _family_decoder(dev, name, B=B, Tk=Tk)
+    si = _slot_inputs(fi, lengths, Tk,
+                      [n * (1.0 / n) ** 0.5 for n in (8, 12, 16, 64)])
+    kern = fd.SlotDecoder(pd, cfg.decoder, B, dev)
+    plain = fd.PlainSlotDecoder(pd, cfg.decoder, B, dev)
+    carries = [kern.zero_carry(), plain.zero_carry()]
+    local = torch.tensor([0, 5, 30, 60], device=dev)
+    for d, c in zip((kern, plain), carries):
+        d.positions(c)[:] = local
+    return kern, plain, carries, si, local
+
+
+def _slot_launch(kern, plain, carries, si, steps, tol=1e-4):
+    """One launch of both; outputs within tol of each output's scale,
+    last_attended and positions exact."""
+    outs = []
+    for d, c in zip((kern, plain), carries):
+        o = d.new_outputs(steps, si.addmask.shape[1])
+        d.launch(si, c, o, steps)
+        outs.append(o)
+    for name, a, b in zip(("outputs", "alignments", "done", "states"),
+                          *outs):
+        err = float((a - b).abs().max())
+        assert err <= tol * max(1.0, float(b.abs().max())), (name, err)
+    k, p = carries
+    la_p = p["state"]["last_attended"][:, plain.att].to(torch.int32)
+    assert torch.equal(k.last_attended[:, :len(plain.att)], la_p)
+    assert torch.equal(k.pos.long(), p["state"]["pos"])
+
+
+@pytest.mark.parametrize("name", ["deepvoice3", "nyanko",
+                                  "deepvoice3_multispeaker"])
+def test_slot_decoder_kernel_matches_plain(dev, name):
+    """B1's serving modes (per-row positions advanced in the kernel,
+    per-row context scales) against the plain per-row decode, over two
+    launches with a text-bucket growth between them: the carry is kept,
+    the grown keys are masked, each row keeps its scale."""
+    kern, plain, carries, si, local = _slot_pair(dev, name)
+    fd.KERNEL.reset_counts()
+    _slot_launch(kern, plain, carries, si, 5)
+    si = fd.grow_slot_inputs(si, 20)
+    _slot_launch(kern, plain, carries, si, 6)
+    assert kern.tk == 20 and fd.KERNEL.by_entry == {"slots": 2}
+    assert carries[0].pos.tolist() == (local + 11).tolist()
+    with pytest.raises(ValueError):
+        fd.grow_slot_inputs(si, 20)
+
+
+@pytest.mark.parametrize("name", ["nyanko", "deepvoice3_multispeaker"])
+def test_slot_decoder_ring_placement_follows_the_bucket(dev, name):
+    """A shared-memory budget that holds every ring buffer at Tk = 12 but
+    not at Tk = 44 (two Tk-long score rows grow the fixed part): the
+    growth moves buffers to device memory between two launches, and the
+    frames still equal the plain decode's."""
+    kern, plain, carries, si, _ = _slot_pair(dev, name)
+    p = kern.plan
+    budget = 4 * (fd.smem_floats(p.act_dim, p.cat_dim, kern.C,
+                                 si.kv.shape[-1], 12, len(p.buffers),
+                                 kern.n_la) + kern.ring_floats)
+    kern.smem_budget = budget
+    _slot_launch(kern, plain, carries, si, 4)
+    assert kern.scratch_floats == 0
+    si = fd.grow_slot_inputs(si, 44)
+    _slot_launch(kern, plain, carries, si, 4)
+    assert 0 < kern.scratch_floats <= kern.ring_floats
+
+
+def test_tiny_batcher_gpu_matches_cpu(dev):
+    """A tiny model's ContinuousBatcher on the card (B1's serving modes,
+    B2's stream modes) against the same submit/step schedule on the CPU:
+    decoded steps and lengths exact, audio 0.12 of the peak (the bar of
+    the tiny stream above); one B1 launch per step."""
+    from deepvoice3_pytorch_tpu_torch import hparams, serving
+    from deepvoice3_pytorch_tpu_torch.dsp.audio import AudioProcessor
+    from deepvoice3_pytorch_tpu_torch.frontend import en
+
+    cfg = builder.deepvoice3(
+        n_vocab=en.n_vocab, embed_dim=32, mel_dim=16, linear_dim=65, r=1,
+        downsample_step=4, kernel_size=3, encoder_channels=32,
+        decoder_channels=32, converter_channels=32, use_memory_mask=True,
+        key_projection=True, value_projection=True, max_positions=64)
+    params = builder.model_init(cfg, torch.Generator().manual_seed(7),
+                                device="cpu")
+    hp = hparams.default_hparams()
+    hp.fft_size, hp.hop_size = 128, 32
+    ap = AudioProcessor(hp)
+    texts = ["Hello streaming world.", "A second, longer sentence here."]
+    runs = []
+    for p in (params, params.to(dev)):
+        b = serving.ContinuousBatcher(p, cfg, ap, en, n_slots=3, text_pad=16,
+                                      chunk=8, max_decoder_steps=32,
+                                      gl_context=8)
+        fd.KERNEL.reset_counts()
+        gl_cuda.KERNEL.reset_counts()
+        qa = b.submit(texts[0])
+        b.step()
+        qb = b.submit(texts[1])
+        while b.step():
+            pass
+        runs.append([_drain_queue(q) for q in (qa, qb)])
+    assert fd.KERNEL.by_entry == {"slots": b._steps_run}
+    assert gl_cuda.KERNEL.launches > 0
+    for (a_g, n_g), (a_c, n_c) in zip(*runs[::-1]):
+        assert n_g == n_c and a_g.shape == a_c.shape
+        peak = max(float(abs(a_c).max()), 1e-6)
+        assert float(abs(a_g - a_c).max()) <= 0.12 * peak
+
+
+def _drain_queue(q):
+    audio = []
+    while True:
+        kind, payload = q.get_nowait()
+        assert kind != "error", payload
+        if kind == "end":
+            return np.concatenate(audio), payload
+        audio.append(payload)
 
 
 @pytest.mark.parametrize("fft,hop,B,n,n_iters,phase_init", [

@@ -436,8 +436,12 @@ def test_serve_http_streaming(tiny):
         server.shutdown()
         server.server_close()
         engine.shutdown()
-    with pytest.raises(NotImplementedError):
-        t_serve.TTSEngine(pt, cfg_t, ap_t, t_en, 24, slots=2)
+    # slots > 0 is continuous batching (tests/test_torch_serving_http.py)
+    engine = t_serve.TTSEngine(pt, cfg_t, ap_t, t_en, 24, slots=2)
+    try:
+        assert engine.stats()["slots"] == 2 and engine.batcher is not None
+    finally:
+        engine.shutdown()
 
 
 def test_wav_helpers_match_root_serve():
