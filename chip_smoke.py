@@ -15,8 +15,17 @@ Phases, one line each; any failure exits non-zero before the result lines:
      version's own error (or 1e-6 of the output's scale). bf16 bar: one bf16
      ulp of the largest value (2^-7 relative) for the bf16 outputs, which
      both round once from an f32 sum, and the f32 bar for the f32 weight
-     gradient. Times kernel, plain and the cuDNN call (F.conv1d forward,
-     convolution_backward for dgrad and wgrad) as the yardstick;
+     gradient. Device times (launches queued behind a device sleep, so
+     the host's costs stay out) of kernel, plain and the cuDNN call
+     (F.conv1d forward, convolution_backward for dgrad and wgrad) as the
+     yardstick, kernel / cuDNN, TFLOP/s and share of the bound; also the
+     kernel's and cuDNN's host-paced times (events around the calls as the
+     host issues them); the route each launch took (fails if a class took
+     the ragged `*_simple` route), the kernels' registers from the build
+     log, the bf16 wgrad's drift against float64 for each k-block length
+     (rows summed in the tensor cores before an f32 add), the forward's
+     time at each tile width of its type, and the host ms of a TMA
+     descriptor encode;
   4. a tiny model's train step, three steps on the GPU (B3) against the same
      steps on the CPU (plain versions): loss 1e-5 relative at step 1 and 1e-4
      after, grad_norm 1e-4, every parameter 5e-5 after three steps;
@@ -99,14 +108,18 @@ Phases, one line each; any failure exits non-zero before the result lines:
      the library step; the hand kernel is invisible to it); device time by
      kernel (torch.profiler) over three steps of each mode; then twenty
      steps on a synthetic-corpus batch, whose loss must be finite and fall.
-     Fails unless B3 was launched in the kernel-mode steps.
+     Fails unless B3's four fast entries (fwd/wgrad, pipe/wgmma) were
+     launched in the kernel-mode steps, and if its ragged route was.
 The line before the last is the kernels' JSON record (B1's launches
 summed over the three builders' main paths and the serving paths, its
 worst error over the four B1 phases; its times are the LJSpeech phase's;
 `fused_decode_slots` is the serving mode alone: its launches on the
 serving paths, B1_serve's error and times; `griffin_lim_stream` counts
 its launches on the stream and serving paths); the last line is
-{"ok": true, "device": {...}}. `--json-out PATH` also writes the B3 and
+{"ok": true, "device": {...}}. Each record's "timing" names how its "ms"
+and "plain_ms" were taken: "host-paced" (cuda_ms: events around calls as
+the host issues them) or "device" (device_ms: the calls queued behind a
+device sleep, met back to back). `--json-out PATH` also writes the B3 and
 training numbers, in full, to PATH.
 
     python3 chip_smoke.py --b1-turns PARENT_DIR
@@ -115,6 +128,16 @@ times B1's LJSpeech chunk (phase 5's kernel call) in this checkout and in
 another one (a copy of an earlier commit), in turns parent, this, this,
 parent, each in a fresh process, and prints one JSON line; nothing else
 runs.
+
+    python3 chip_smoke.py --b3-turns PARENT_DIR
+
+times phase 3's per-step sums of B3 (device and host-paced, kernel and
+cuDNN) on another checkout's conv kernels and on this one's, in the same
+turns, with this script's timers; nothing else runs.
+
+    python3 chip_smoke.py --b3-only
+
+builds the kernels and runs phase 3 alone.
 """
 
 import copy
@@ -180,6 +203,23 @@ def cuda_ms(fn, torch, reps=3):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, torch, reps=5, host_lead_ms=30.0):
+    """Mean device time of fn() over `reps` runs after one warm-up, with the
+    host's launch costs out of the measurement: the runs are queued behind
+    a `host_lead_ms` device sleep, so the card meets them back to back."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(host_lead_ms * 2e6))   # cycles at ~2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -283,11 +323,7 @@ def _wgrad64(x, dy, pad, dil, kw):
                         for j in range(kw)])
 
 
-def check_b3_class(torch, cls, B, dtype, dev, seed):
-    """Kernel vs plain (and float64) for one shape class: errors, bars and
-    times of forward, dgrad, wgrad for kernel, plain and cuDNN."""
-    from deepvoice3_pytorch_tpu_torch.ops import conv_cuda as cc
-
+def _b3_inputs(torch, cls, B, dtype, dev, seed):
     name, count, C, N, tmul, dil, causal = cls
     T = tmul * T_DEC
     dt = getattr(torch, dtype)
@@ -297,6 +333,20 @@ def check_b3_class(torch, cls, B, dtype, dev, seed):
     b = (torch.randn(N, generator=g) * 0.1).to(dev, dt)
     dy = torch.randn(B, T, N, generator=g).to(dev, dt)
     pad = ((KW - 1) * dil, 0) if causal else (dil, dil)
+    return x, w, b, dy, pad, dil
+
+
+def check_b3_class(torch, cls, B, dtype, dev, seed):
+    """Kernel vs plain (and float64) for one shape class: errors, bars,
+    the route each launch took, and times of forward, dgrad, wgrad for
+    kernel, plain and cuDNN, with the bound of each. Times are device_ms;
+    the kernel's and cuDNN's also cuda_ms ("*_host_paced": the calls as the
+    host issues them)."""
+    from deepvoice3_pytorch_tpu_torch.ops import conv_cuda as cc
+
+    x, w, b, dy, pad, dil = _b3_inputs(torch, cls, B, dtype, dev, seed)
+    B, T, C = x.shape
+    N = w.shape[2]
     mirrored = (pad[1], pad[0])
     wd = w.flip(0).transpose(1, 2)
     runs = {
@@ -324,11 +374,21 @@ def check_b3_class(torch, cls, B, dtype, dev, seed):
         "wgrad": lambda: aten(dyl, xl, wl, None, [1], [dil], [dil], False,
                               [0], 1, [False, True, False]),
     }
-    out = {}
+    isz = x.element_size()
+    flops = 2.0 * B * T * N * KW * C
+    nbytes = {
+        "fwd": (B * T * C + KW * C * N + B * T * N) * isz + 4 * N,
+        "dgrad": (B * T * N + KW * C * N + B * T * C) * isz,
+        "wgrad": (B * T * C + B * T * N) * isz + 4 * KW * C * N}
+    out = {"flops": flops, "bytes": nbytes}
     for op, (kern, plain, exact) in runs.items():
-        got, want = kern(), plain()
+        cc.KERNEL.reset_counts()
+        got = kern()
+        route = sorted(cc.KERNEL.by_entry)
+        want = plain()
         torch.cuda.synchronize()
         scale = max(1.0, float(want.float().abs().max()))
+        drift = None
         if got.dtype == torch.bfloat16:
             err = maxabs(got, want)
             ok = err <= 2.0 ** -7 * scale
@@ -338,17 +398,21 @@ def check_b3_class(torch, cls, B, dtype, dev, seed):
             err = float((got.double() - ref).abs().max())
             floor = float((want.double() - ref).abs().max())
             ok = err <= max(4 * floor, 1e-6 * scale)
+            drift = err / scale
+        ms = device_ms(kern, torch)
+        lib_ms = device_ms(library[op], torch)
+        hp_ms = cuda_ms(kern, torch, reps=5)
+        hp_lib_ms = cuda_ms(library[op], torch, reps=5)
+        bms, by = bound(flops, nbytes[op], dtype)
         out[op] = {"err": err, "plain_vs_f64": floor, "scale": scale,
-                   "ok": ok, "ms": cuda_ms(kern, torch, reps=5),
-                   "plain_ms": cuda_ms(plain, torch, reps=5),
-                   "library_ms": cuda_ms(library[op], torch, reps=5)}
-    isz = x.element_size()
-    flops = 2.0 * B * T * N * KW * C
-    out["flops"] = flops
-    out["bytes"] = {
-        "fwd": (B * T * C + KW * C * N + B * T * N) * isz + 4 * N,
-        "dgrad": (B * T * N + KW * C * N + B * T * C) * isz,
-        "wgrad": (B * T * C + B * T * N) * isz + 4 * KW * C * N}
+                   "drift_of_scale": drift, "ok": ok, "route": route,
+                   "ms": ms, "plain_ms": device_ms(plain, torch),
+                   "library_ms": lib_ms, "vs_cudnn": ms / lib_ms,
+                   "ms_host_paced": hp_ms,
+                   "library_ms_host_paced": hp_lib_ms,
+                   "vs_cudnn_host_paced": hp_ms / hp_lib_ms,
+                   "tflops": flops / ms / 1e9, "bound_ms": bms,
+                   "bound_by": by, "share_of_bound": bms / ms}
     return out
 
 
@@ -361,21 +425,136 @@ def check_b3(torch, dev, seed):
         step = {}
         for entry, ops in (("conv_taps_fwd", ("fwd", "dgrad")),
                            ("conv_taps_wgrad", ("wgrad",))):
-            tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                   "flops": 0.0, "bytes": 0.0, "err": 0.0}
+            times = ("ms", "plain_ms", "library_ms", "ms_host_paced",
+                     "library_ms_host_paced")
+            tot = dict.fromkeys(times + ("flops", "bytes", "err"), 0.0)
+            routes = set()
             for c in CONV_CLASSES:
                 r = classes[c[0]]
                 for op in ops:
-                    for k in ("ms", "plain_ms", "library_ms"):
+                    for k in times:
                         tot[k] += c[1] * r[op][k]
                     tot["flops"] += c[1] * r["flops"]
                     tot["bytes"] += c[1] * r["bytes"][op]
                     tot["err"] = max(tot["err"], r[op]["err"])
+                    routes.update(r[op]["route"])
             tot["bound_ms"], tot["bound_by"] = bound(tot["flops"],
                                                      tot["bytes"], dtype)
+            tot["vs_cudnn"] = tot["ms"] / tot["library_ms"]
+            tot["vs_cudnn_host_paced"] = (tot["ms_host_paced"] /
+                                          tot["library_ms_host_paced"])
+            tot["tflops"] = tot["flops"] / tot["ms"] / 1e9
+            tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
+            tot["routes"] = sorted(routes)
             step[entry] = tot
         res[(B, dtype)] = (classes, step)
     return res
+
+
+# bf16 wgrad: row tiles (64 rows) summed by wgmma before each f32 add
+KBLOCKS = (1, 2, 4, 8, 16, 32)
+
+
+def check_kblocks(torch, dev, seed):
+    """The bf16 wgrad's drift against float64 and its time for each k-block
+    length, at the class with the most rows (converter_4T_wide, B = 64:
+    32768 rows), with the f32 bar max(4x plain's drift, 1e-6 of scale)."""
+    from deepvoice3_pytorch_tpu_torch.ops import conv_cuda as cc
+
+    x, w, b, dy, pad, dil = _b3_inputs(torch, CONV_CLASSES[-1], 64,
+                                       "bfloat16", dev, seed)
+    want = cc.conv1d_taps_wgrad_plain(x, dy, pad, dil, KW)
+    ref = _wgrad64(x, dy, pad, dil, KW)
+    scale = max(1.0, float(want.abs().max()))
+    floor = float((want.double() - ref).abs().max())
+    bar = max(4 * floor, 1e-6 * scale)
+    rows = {"plain_drift_of_scale": floor / scale, "bar_of_scale":
+            bar / scale, "chosen": cc.WGRAD_KBLOCK}
+    for kb in KBLOCKS:
+        got = cc._launch_wgrad(x, dy, pad, dil, KW, kblock=kb)
+        torch.cuda.synchronize()
+        err = float((got.double() - ref).abs().max())
+        rows["kblock_%d" % kb] = {
+            "rows": 64 * kb, "drift_of_scale": err / scale,
+            "ok": err <= bar, "ms": device_ms(
+                lambda: cc._launch_wgrad(x, dy, pad, dil, KW, kblock=kb),
+                torch, reps=5)}
+    return rows
+
+
+# the fast forward's tile widths (columns) by type, and the batch it runs at
+FWD_TILES = {"float32": (16, (64, 128)), "bfloat16": (64, (128, 256))}
+
+
+def check_fwd_tiles(torch, dev, seed):
+    """The fast forward and dgrad at either tile width, every class, f32 at
+    B = 16 and bf16 at B = 64: device ms of each, and the width fwd_plan
+    picks."""
+    from deepvoice3_pytorch_tpu_torch.ops import conv_cuda as cc
+
+    rows = {}
+    for dtype, (B, widths) in FWD_TILES.items():
+        for cls in CONV_CLASSES:
+            x, w, b, dy, pad, dil = _b3_inputs(torch, cls, B, dtype, dev,
+                                               seed)
+            calls = {"fwd": (x, b, pad[0], False),
+                     "dgrad": (dy, None, pad[1], True)}
+            for op, (inp, bias, pl, dgrad) in calls.items():
+                _, T, C = inp.shape
+                N = w.shape[1] if dgrad else w.shape[2]
+                rows["%s_%s_%s" % (dtype, cls[0], op)] = dict(
+                    {"tile_%d_ms" % tn: device_ms(
+                        lambda: cc._launch_fwd(inp, w, bias, pl, dil, dgrad,
+                                               tn),
+                        torch) for tn in widths},
+                    picked=cc.fwd_plan(B, T, C, N, inp.dtype)[1][1])
+    return rows
+
+
+def b3_phase(torch, dev, seed, card, usage):
+    """Phase B3: check_b3 printed per class and per step, the k-block sweep
+    and the descriptor encode; fails on a bar or a ragged route. Returns
+    check_b3's result and {"encode_ms", "kblocks"}."""
+    from deepvoice3_pytorch_tpu_torch.ops import conv_cuda as cc
+
+    b3 = check_b3(torch, dev, seed)
+    ok, simple = True, []
+    for (B, dtype), (classes, step) in b3.items():
+        for cname, r in classes.items():
+            ops = {op: {k: (round(v, 4) if isinstance(v, float) and
+                            k.endswith("ms") else v)
+                        for k, v in r[op].items()}
+                   for op in ("fwd", "dgrad", "wgrad")}
+            phase("B3", "%s B=%d %s: %s" % (cname, B, dtype,
+                                            json.dumps(ops)))
+            ok &= all(ops[op]["ok"] for op in ops)
+            simple += ["%s %s %s" % (cname, dtype, op) for op in ops
+                       if any(e.endswith("_simple") for e in
+                              ops[op]["route"])]
+        for entry, tot in step.items():
+            kind = "fwd" if entry.endswith("fwd") else "wgrad"
+            tot["ptxas"] = [u for u in usage if u.startswith(
+                "%s_%s_" % (kind, "bf16" if dtype == "bfloat16" else "f32"))
+                and "simple" not in u]
+        phase("B3", "per train step (25 convs) B=%d %s (%s): %s" % (
+            B, dtype, card, json.dumps(step)))
+    kb = check_kblocks(torch, dev, seed)
+    phase("B3", "bf16 wgrad k-block sweep, converter_4T_wide B=64 (32768 "
+          "rows), drift of scale against float64 (%s): %s"
+          % (card, json.dumps(kb)))
+    tiles = check_fwd_tiles(torch, dev, seed)
+    phase("B3", "forward/dgrad tile width sweep, f32 B=16, bf16 B=64 (%s): %s"
+          % (card, json.dumps(tiles)))
+    x = torch.empty(64 * 128 * 512, dtype=torch.bfloat16, device=dev)
+    enc = cc.encode_ms(x)
+    phase("B3", "TMA descriptor encode: %.5f host ms each; 2 a bf16 launch, "
+          "75 bf16 launches a train step: %.4f host ms a step"
+          % (enc, 150 * enc))
+    if not ok or not kb["kblock_%d" % cc.WGRAD_KBLOCK]["ok"]:
+        fail("kernel B3 disagreed with its plain version")
+    if simple:
+        fail("bench classes took the ragged route: %s" % simple)
+    return b3, {"encode_ms": enc, "kblocks": kb, "fwd_tiles": tiles}
 
 
 # ---------------------------------------------------------------------------
@@ -501,11 +680,14 @@ def profile_device(torch, fn, n, ms_per_call):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    rows = []
+    rows, host = [], []
     for e in prof.key_averages():
         # device events only: a CPU op's self device time repeats the
         # kernels it launched (a ctypes launch has no aten child)
         if str(e.device_type).split(".")[-1] != "CUDA":
+            if e.self_cpu_time_total > 0:
+                host.append((e.self_cpu_time_total / 1e3 / n, e.count / n,
+                             e.key[:50]))
             continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
@@ -519,7 +701,43 @@ def profile_device(torch, fn, n, ms_per_call):
             "busy_share": round(busy / ms_per_call, 4),
             "launches": round(sum(r[1] for r in rows), 1),
             "copies": [[round(a, 3), round(c, 1), k] for a, c, k in copies],
-            "top": [[round(a, 3), round(c, 1), k] for a, c, k in rows[:12]]}
+            "top": [[round(a, 3), round(c, 1), k] for a, c, k in rows[:12]],
+            "host_top": [[round(a, 3), round(c, 1), k] for a, c, k in
+                         sorted(host, reverse=True)[:10]]}
+
+
+def conv_host_us(torch, dev, n=200):
+    """Host microseconds of one weight-normalised conv layer, forward and
+    backward through autograd, in each conv mode and type, at a shape whose
+    device work is a few microseconds (B = 2, T = 32, 64 -> 128 channels,
+    dilation 3): what the step's host pays for each of its 25 convs."""
+    from deepvoice3_pytorch_tpu_torch.ops import core
+
+    g = torch.Generator().manual_seed(0)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        p = {"v": torch.randn(KW, 64, 128, generator=g),
+             "g": torch.rand(128, generator=g) + 0.5,
+             "b": torch.randn(128, generator=g) * 0.1}
+        p = {k: v.to(dev, dt).requires_grad_(True) for k, v in p.items()}
+        x = torch.randn(2, 32, 64, generator=g).to(dev, dt)
+        dy = torch.randn(2, 32, 128, generator=g).to(dev, dt)
+        for mode in ("kernel", "library"):
+            def one():
+                with core.conv_mode(mode):
+                    y = core.conv1d_apply(p, x, dilation=3)
+                y.backward(dy)
+            for _ in range(5):
+                one()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                one()
+            torch.cuda.synchronize()
+            out["%s_%s" % (mode, dtype)] = round(
+                (time.perf_counter() - t) / n * 1e6, 1)
+    return out
 
 
 def train_main_path(torch, pkg, hp, dev, seed, card):
@@ -533,6 +751,9 @@ def train_main_path(torch, pkg, hp, dev, seed, card):
     from deepvoice3_pytorch_tpu_torch.training import trainer
     from deepvoice3_pytorch_tpu_torch.utils import synthcorpus as sc
 
+    host_us = conv_host_us(torch, dev)
+    phase("train", "host us per conv layer, forward + backward (device "
+          "work ~us): %s" % json.dumps(host_us))
     en = pkg["en"]
     cfg, params0 = pkg["model_builder"].build_model(hp, en.n_vocab,
                                                     seed=seed, device=dev)
@@ -582,6 +803,7 @@ def train_main_path(torch, pkg, hp, dev, seed, card):
                          "steps_per_s": round(1e3 / per, 3),
                          "mfu": round(flops / (per * 1e-3)
                                       / PEAK_FLOPS[dtype], 5)}
+        row["conv_host_us"] = host_us
         rows["B%d_%s" % (B, dtype)] = row
         phase("train", "B=%d %s (%s): kernel %.2f ms/step (%.2f steps/s, "
               "MFU %.4f of %g TFLOP/s), library %.2f ms/step (%.2f steps/s,"
@@ -595,9 +817,11 @@ def train_main_path(torch, pkg, hp, dev, seed, card):
         for mode, prof in profiles.items():
             phase("train_profile", "B=%d %s %s: device %.2f ms/step, busy "
                   "%.3f of the unprofiled step; top kernels [ms/step, "
-                  "launches/step, name]: %s" % (
+                  "launches/step, name]: %s; host self time (profiled) "
+                  "[ms/step, calls/step, op]: %s" % (
                       B, dtype, mode, prof["device_ms_per_step"],
-                      prof["busy_share"], json.dumps(prof["top"][:8])))
+                      prof["busy_share"], json.dumps(prof["top"][:8]),
+                      json.dumps(prof["host_top"][:8])))
 
     # a real batch: the synthetic corpus at the preset's audio settings,
     # a constant learning rate, twenty kernel-mode f32 steps
@@ -1924,6 +2148,52 @@ def b1_turns(parent, card):
           flush=True)
 
 
+# Run in a checkout's root with this script's path as its one argument:
+# phase B3's per-step sums, timed by this script's functions on the
+# checkout's own conv kernels (an earlier commit's included).
+B3_TURNS = r"""
+import importlib.util, json, sys, torch
+spec = importlib.util.spec_from_file_location('smoke', sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+sys.path.insert(0, '.')
+from deepvoice3_pytorch_tpu_torch.ops import conv_cuda, core
+cs.build_kernels((conv_cuda.KERNEL,))
+with core.strict_numerics():
+    res = cs.check_b3(torch, torch.device('cuda', 0), 1234)
+print(json.dumps({'%d_%s' % k: step for k, (_, step) in res.items()}))
+"""
+
+B3_TURN_KEYS = ("ms", "library_ms", "vs_cudnn", "ms_host_paced",
+                "library_ms_host_paced", "vs_cudnn_host_paced", "routes")
+
+
+def b3_turns(parent, card, json_out):
+    """Phase B3's per-step sums (device and host-paced, kernel and cuDNN)
+    of `parent`'s conv kernels and this checkout's, timed by this script in
+    turns parent, this, this, parent, each a fresh process."""
+    here = os.path.abspath(__file__)
+    turns = []
+    for name, tree in (("parent", parent), ("this", os.path.dirname(here)),
+                       ("this", os.path.dirname(here)), ("parent", parent)):
+        res = subprocess.run([sys.executable, "-c", B3_TURNS, here],
+                             cwd=tree, capture_output=True, text=True,
+                             timeout=600)
+        if res.returncode != 0:
+            fail("b3 turn in %s: %s" % (tree, res.stderr[-2000:]))
+        steps = json.loads(res.stdout.strip().splitlines()[-1])
+        turns.append([name, steps])
+        for cell, entries in steps.items():
+            for entry, tot in entries.items():
+                phase("b3_turns", "%s %s %s: %s" % (name, cell, entry,
+                      json.dumps({k: tot[k] for k in B3_TURN_KEYS})))
+    if json_out:
+        os.makedirs(os.path.dirname(os.path.abspath(json_out)),
+                    exist_ok=True)
+        with open(json_out, "w") as f:
+            json.dump({"card": card, "b3_turns": turns}, f, indent=1)
+
+
 def main():
     import argparse
 
@@ -1937,6 +2207,11 @@ def main():
     ap.add_argument("--b1-turns", default=None, metavar="PARENT_DIR",
                     help="only time B1's LJSpeech chunk here and in "
                          "PARENT_DIR, in turns")
+    ap.add_argument("--b3-turns", default=None, metavar="PARENT_DIR",
+                    help="only time phase B3's per-step sums here and in "
+                         "PARENT_DIR, in turns")
+    ap.add_argument("--b3-only", action="store_true",
+                    help="only build the kernels and run phase B3")
     args = ap.parse_args()
     json_out = args.json_out
     if not torch.cuda.is_available():
@@ -1978,31 +2253,33 @@ def main():
     if args.b1_turns:
         b1_turns(os.path.abspath(args.b1_turns), card)
         return
+    if args.b3_turns:
+        b3_turns(os.path.abspath(args.b3_turns), card, json_out)
+        return
 
     t0 = time.time()
     logs = build_kernels((fd.KERNEL, gl_cuda.KERNEL, conv_cuda.KERNEL))
+    usage = []
     for source, log in logs.items():
         phase("build", "%s: %s" % (source, "; ".join(ptxas_usage(log))))
+        usage += ptxas_usage(log)
     phase("build", "kernels built and loaded in %.1f s" % (time.time() - t0))
 
     hp = ljspeech_hparams(hparams, repo)
     seed = 1234
     ok = True
     with core.strict_numerics():
-        b3 = check_b3(torch, dev, seed)
-        for (B, dtype), (classes, step) in b3.items():
-            for cname, r in classes.items():
-                ops = {op: {k: (round(v, 4) if isinstance(v, float) and
-                                k.endswith("ms") else v)
-                            for k, v in r[op].items()}
-                       for op in ("fwd", "dgrad", "wgrad")}
-                phase("B3", "%s B=%d %s: %s" % (cname, B, dtype,
-                                                json.dumps(ops)))
-                ok &= all(ops[op]["ok"] for op in ops)
-            phase("B3", "per train step (25 convs) B=%d %s (%s): %s" % (
-                B, dtype, card, json.dumps(step)))
-        if not ok:
-            fail("kernel B3 disagreed with its plain version")
+        b3, b3_extra = b3_phase(torch, dev, seed, card, usage)
+        if args.b3_only:
+            if json_out:
+                os.makedirs(os.path.dirname(os.path.abspath(json_out)),
+                            exist_ok=True)
+                with open(json_out, "w") as f:
+                    json.dump({"card": card, "b3": {"%d_%s" % k: v for k, v
+                                                    in b3.items()},
+                               "b3_extra": b3_extra}, f, indent=1,
+                              default=str)
+            return
 
         ref_ok, ref = check_train_reference(torch, pkg, dev)
         phase("train_reference", "tiny model, 3 steps GPU (B3) vs CPU "
@@ -2268,14 +2545,20 @@ def main():
                                                   card)
         phase("train", "B3 launches in the kernel-mode steps: %s"
               % json.dumps(b3_launches))
-        if b3_launches["total"] <= 0 or not b3_launches.get("wgrad"):
-            fail("kernel B3 was not launched on the training main path")
+        fast = ("fwd_pipe", "wgrad_pipe", "fwd_wgmma", "wgrad_wgmma")
+        if any(b3_launches.get(k, 0) <= 0 for k in fast):
+            fail("a route of kernel B3 was not launched on the training "
+                 "main path: %s" % json.dumps(b3_launches))
+        if any(k.endswith("_simple") for k in b3_launches):
+            fail("the train step at bench.py's shapes took B3's ragged "
+                 "route: %s" % json.dumps(b3_launches))
         if json_out:
             os.makedirs(os.path.dirname(os.path.abspath(json_out)),
                         exist_ok=True)
             with open(json_out, "w") as f:
                 json.dump({"card": card, "train": train_rows,
                            "b3": {"%d_%s" % k: v for k, v in b3.items()},
+                           "b3_extra": b3_extra,
                            "b2_stream": b2s, "p": p_row, "stream": st_rows,
                            "serve": sv_rows, "b1": b1_rows,
                            "b1_serve": b1s, "cb": cb_rows,
@@ -2284,7 +2567,6 @@ def main():
 
     b1_bound = b1_rows["B1"]["bound"]
     b2_bound = b2_bound_ms()
-    b3_step = b3[(16, "float32")][1]
 
     print(json.dumps({"kernels": [
         {"name": "fused_decode", "route": "cuda",
@@ -2293,14 +2575,14 @@ def main():
          "launches": sum(b1_paths.values()) + sum(b1_slots.values()),
          "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain_ms,
          "bound_ms": b1_bound[0], "bound_by": b1_bound[1],
-         "library_ms": None},
+         "library_ms": None, "timing": "host-paced"},
         {"name": "fused_decode_slots", "route": "cuda",
          "source": "deepvoice3_pytorch_tpu_torch/csrc/fused_decode.cu",
          "replaces": "deepvoice3_pytorch_tpu/ops/fused_decode.py:198",
          "launches": sum(b1_slots.values()), "max_abs_err": b1s["err"],
          "ms": b1s["ms"], "plain_ms": b1s["plain_ms"],
          "bound_ms": b1s["bound"][0], "bound_by": b1s["bound"][1],
-         "library_ms": None},
+         "library_ms": None, "timing": "host-paced"},
         {"name": "griffin_lim", "route": "cuda",
          "source": "deepvoice3_pytorch_tpu_torch/csrc/griffin_lim.cu",
          "replaces": "deepvoice3_pytorch_tpu/dsp/gl_pallas.py:146",
@@ -2321,19 +2603,21 @@ def main():
          "launches": p_launches, "max_abs_err": p_row["err"],
          "ms": p_row["ms"], "plain_ms": p_row["plain_ms"],
          "bound_ms": p_row["bound"][0], "bound_by": p_row["bound"][1],
-         "library_ms": None},
+         "library_ms": None, "timing": "host-paced"},
     ] + [
-        {"name": entry, "route": "cuda",
+        {"name": "conv_taps_%s_%s" % (entry, route), "route": "cuda",
          "source": "deepvoice3_pytorch_tpu_torch/csrc/conv_taps.cu",
          "replaces": "deepvoice3_pytorch_tpu/ops/conv_pallas.py:%d" % line,
-         "launches": b3_launches.get(key, 0),
-         "max_abs_err": b3_step[entry]["err"], "ms": b3_step[entry]["ms"],
-         "plain_ms": b3_step[entry]["plain_ms"],
-         "bound_ms": b3_step[entry]["bound_ms"],
-         "bound_by": b3_step[entry]["bound_by"],
-         "library_ms": b3_step[entry]["library_ms"]}
-        for entry, key, line in (("conv_taps_fwd", "fwd", 157),
-                                 ("conv_taps_wgrad", "wgrad", 212))
+         "launches": b3_launches.get("%s_%s" % (entry, route), 0),
+         "max_abs_err": step[key]["err"], "ms": step[key]["ms"],
+         "plain_ms": step[key]["plain_ms"],
+         "bound_ms": step[key]["bound_ms"],
+         "bound_by": step[key]["bound_by"],
+         "library_ms": step[key]["library_ms"], "timing": "device"}
+        for route, step in (("pipe", b3[(16, "float32")][1]),
+                            ("wgmma", b3[(64, "bfloat16")][1]))
+        for entry, key, line in (("fwd", "conv_taps_fwd", 157),
+                                 ("wgrad", "conv_taps_wgrad", 212))
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

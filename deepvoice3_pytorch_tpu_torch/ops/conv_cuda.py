@@ -20,9 +20,17 @@ the plain PyTorch version (`conv1d_taps_plain`, `conv1d_taps_wgrad_plain`), a
 CUDA tensor launches the hand-written kernel of `csrc/conv_taps.cu` or raises.
 A call outside the contract (output length != input length) raises on both;
 nothing falls back.
+
+On the card each launch takes one of two routes, chosen from the shape alone
+(`route`, `fwd_plan`, `wgrad_plan`): the fast route (bf16: TMA + wgmma,
+"wgmma"; f32: cp.async ring + FMA, "pipe") when C and N are multiples of 8
+(bf16) or 4 (f32), else the simple kernels ("simple"). `KERNEL.by_entry`
+counts each launch under "fwd_<route>" or "wgrad_<route>".
 """
 
+import collections
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -34,12 +42,91 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = _build.Kernel("conv_taps.cu", {
     "dv3_conv_taps_fwd": [_P, _P, _P, _P] + [_I] * 9 + [_P, _I],
     "dv3_conv_taps_wgrad": [_P, _P, _P, _P] + [_I] * 12 + [_P, _I],
+    "dv3_conv_taps_fwd_fast": [_P, _P, _P, _P] + [_I] * 10 + [_P, _I],
+    "dv3_conv_taps_wgrad_fast": [_P, _P, _P, _P] + [_I] * 11 + [_P, _I],
+    "dv3_conv_taps_encode_ns": [_P, _I],
 })
 
-# wgrad output tiles (csrc/conv_taps.cu FM x FN for f32, HM x HN for bf16)
-_WGRAD_TILE = {torch.float32: (128, 64), torch.bfloat16: (64, 64)}
-_TARGET_BLOCKS = 2 * 132     # two blocks for each of the H100's 132 SMs
+_SMS = 132                   # the H100's streaming multiprocessors
+# Fast route per type: rows of C and N must be 16-byte multiples (TMA boxes
+# for bf16, 16-byte cp.async for f32)
+_FAST = {torch.float32: ("pipe", 4), torch.bfloat16: ("wgmma", 8)}
+# fast tiles: forward (time steps, out channels); wgrad (C, N, rows a tile),
+# as csrc/conv_taps.cu fixes them (bf16 GM x GN x GK, f32 PM x PWN x PK)
+_FWD_TILE = {torch.float32: (128, 128), torch.bfloat16: (128, 256)}
+_WGRAD_TILE = {torch.float32: (128, 128, 32), torch.bfloat16: (128, 128, 64)}
+# ragged route's wgrad tiles (csrc/conv_taps.cu FM x FN, HM x HN)
+_SIMPLE_WGRAD_TILE = {torch.float32: (128, 64), torch.bfloat16: (64, 64)}
+_SIMPLE_TARGET_BLOCKS = 2 * _SMS
 _MIN_ROWS_PER_SPLIT = 256
+# bf16 wgrad: row tiles (64 rows each) summed in the tensor cores before
+# each f32 add; see the kernel's note on drift
+WGRAD_KBLOCK = 8
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def route(C, N, dtype):
+    """"wgmma" (bf16) or "pipe" (f32) when every row of the operands is a
+    16-byte multiple, else "simple". From the shape alone."""
+    name, q = _FAST[dtype]
+    return name if C % q == 0 and N % q == 0 else "simple"
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(B, T, C, N, dtype):
+    """(route, (tile rows, tile columns)) of a forward launch; x (B, T, C),
+    N output channels. The wide tiles (bf16 128 x 256, f32 128 x 128, one
+    block an SM) halve their columns where they would leave half the SMs
+    idle."""
+    r = route(C, N, dtype)
+    if r == "simple":
+        return r, (128, 64) if dtype == torch.float32 else (64, 64)
+    tm, tn = _FWD_TILE[dtype]
+    if 2 * B * _cdiv(T, tm) * _cdiv(N, tn) <= _SMS:
+        tn //= 2
+    return r, (tm, tn)
+
+
+def _fast_splits(blocks, row_tiles, kw, min_tiles=4):
+    """Row splits for the fast wgrad, one block an SM: the split count S
+    that minimises the waves times the row tiles a block walks (plus two
+    tiles of prologue and epilogue), each split at least `min_tiles`."""
+    best = None
+    for s in range(1, max(1, min(row_tiles // min_tiles, 65535 // kw)) + 1):
+        per = _cdiv(row_tiles, s)
+        cost = _cdiv(blocks * s, _SMS) * (per + 2)
+        if best is None or cost < best[0]:
+            best = (cost, s)
+    s = best[1]
+    per = _cdiv(row_tiles, s)
+    return _cdiv(row_tiles, per), per
+
+
+# per_split: row tiles a split (fast route) or rows (ragged route)
+WgradPlan = collections.namedtuple("WgradPlan",
+                                   "route tile splits per_split")
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_plan(B, T, C, N, kw, dtype):
+    """Route, tile (C, N, rows), splits and rows of a weight-gradient
+    launch (a WgradPlan)."""
+    r = route(C, N, dtype)
+    if r == "simple":
+        tm, tn = _SIMPLE_WGRAD_TILE[dtype]
+        M = B * T
+        blocks = _cdiv(C, tm) * _cdiv(N, tn) * kw
+        splits = max(1, min(_cdiv(_SIMPLE_TARGET_BLOCKS, blocks),
+                            M // _MIN_ROWS_PER_SPLIT, 65535 // kw))
+        rows = _cdiv(M, splits)
+        return WgradPlan(r, (tm, tn, rows), _cdiv(M, rows), rows)
+    tc, tn, rt = _WGRAD_TILE[dtype]
+    blocks = _cdiv(C, tc) * _cdiv(N, tn) * kw
+    splits, per = _fast_splits(blocks, B * _cdiv(T, rt), kw)
+    return WgradPlan(r, (tc, tn, rt), splits, per)
 
 
 def check_contract(kw, pad, dil):
@@ -92,7 +179,7 @@ def conv1d_taps_wgrad_plain(x, dy, pad, dil, kw):
 
 def _check_cuda(name, *tensors):
     dt = tensors[0].dtype
-    if dt not in _WGRAD_TILE:
+    if dt not in _FAST:
         raise TypeError("%s: the kernel takes float32 or bfloat16, got %s"
                         % (name, dt))
     for t in tensors:
@@ -104,72 +191,101 @@ def _check_cuda(name, *tensors):
                              "indexing" % (name, t.numel()))
 
 
-def _aligned(*tensors):
-    return all(t.data_ptr() % 16 == 0 for t in tensors)
+def _dense(t):
+    """t contiguous and 16-byte aligned (a view at an odd offset is
+    copied): what the fast route's loads need."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch_fwd(x, wt, b, pl, dil):
-    """y (B, T, N) from x (B, T, C) and wt (kw, N, C), taps laid out
-    (out, in) so that each tap's reduction runs contiguous."""
-    _check_cuda("conv1d_taps", x, wt)
-    x, wt = x.contiguous(), wt.contiguous()
+# weight layouts of the fast forward (csrc/conv_taps.cu w_layout)
+_OUT_IN, _TAPS_REVERSED, _IN_OUT = 0, 1, 2
+
+
+def _launch_fwd(x, w, b, pl, dil, dgrad=False, tile_n=None):
+    """y (B, T, N) from x (B, T, C) and the layer's weight w (kw, C, N)
+    (forward), or the input gradient from dy = x (B, T, N) and the same w
+    (dgrad: the taps flipped and transposed, returning (B, T, C)). Each
+    route reads w as it needs it: the ragged route and the f32 forward copy
+    it to (kw, out, in); the f32 dgrad reads its taps in reverse; bf16 reads
+    w in place either way. tile_n: the fast route's tile columns
+    (fwd_plan's by default)."""
+    _check_cuda("conv1d_taps", x, w)
     B, T, C = x.shape
-    kw, N, _ = wt.shape
-    if wt.shape[2] != C:
-        raise ValueError("conv1d_taps: weight (kw, N, %d) expected, got %s"
-                         % (C, tuple(wt.shape)))
+    kw = w.shape[0]
+    N = w.shape[1] if dgrad else w.shape[2]
+    if w.shape[2 if dgrad else 1] != C:
+        raise ValueError("conv1d_taps: weight of %s for input channels %d"
+                         % (tuple(w.shape), C))
     bias = None if b is None else b.float().contiguous()
     if bias is not None and bias.shape != (N,):
         raise ValueError("conv1d_taps: bias of shape (%d,) expected" % N)
+    r, (_, tn) = fwd_plan(B, T, C, N, x.dtype)
+    tn = tn if tile_n is None else tile_n
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    if r == "simple" or not (dgrad or is_bf16):
+        wt, layout = (w.flip(0) if dgrad else w.transpose(1, 2)), _OUT_IN
+    else:
+        wt, layout = w, _TAPS_REVERSED if dgrad else _IN_OUT
+    x, wt = _dense(x), _dense(wt)
     y = torch.empty(B, T, N, dtype=x.dtype, device=x.device)
-    is_bf16 = x.dtype == torch.bfloat16
-    vec = int(C % 8 == 0 and _aligned(x, wt))
     dev = x.device
-    rc = KERNEL.lib.dv3_conv_taps_fwd(
-        x.data_ptr(), wt.data_ptr(), 0 if bias is None else bias.data_ptr(),
-        y.data_ptr(), B, T, C, N, kw, dil, pl, int(is_bf16), vec,
-        torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
-    KERNEL.launched("fwd")
-    KERNEL.check(rc, "conv_taps forward launch")
+    args = (x.data_ptr(), wt.data_ptr(),
+            0 if bias is None else bias.data_ptr(), y.data_ptr(),
+            B, T, C, N, kw, dil, pl, is_bf16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if r == "simple":
+        rc = KERNEL.lib.dv3_conv_taps_fwd(
+            *args, int(C % 8 == 0), stream, dev.index or 0)
+    else:
+        rc = KERNEL.lib.dv3_conv_taps_fwd_fast(*args, tn, layout, stream,
+                                               dev.index or 0)
+    KERNEL.check(rc, "conv_taps forward launch (%s route)" % r)
+    KERNEL.launched("fwd_" + r)
     return y
 
 
-def wgrad_splits(B, T, C, N, kw, dtype):
-    """Row ranges for the weight gradient: enough blocks for two per SM,
-    each range at least _MIN_ROWS_PER_SPLIT rows. Returns (splits,
-    rows_per_split)."""
-    tm, tn = _WGRAD_TILE[dtype]
-    M = B * T
-    blocks = -(-C // tm) * -(-N // tn) * kw
-    splits = max(1, min(-(-_TARGET_BLOCKS // blocks),
-                        M // _MIN_ROWS_PER_SPLIT, 65535 // kw))
-    rows = -(-M // splits)
-    return -(-M // rows), rows
-
-
-def _launch_wgrad(x, dy, pad, dil, kw):
+def _launch_wgrad(x, dy, pad, dil, kw, kblock=None):
+    """dw (kw, C, N) f32. kblock: row tiles a wgmma partial sum (bf16 fast
+    route; WGRAD_KBLOCK by default)."""
     _check_cuda("conv1d_taps wgrad", x, dy)
-    x, dy = x.contiguous(), dy.contiguous()
     B, T, C = x.shape
     N = dy.shape[2]
     if dy.shape[:2] != x.shape[:2]:
         raise ValueError("conv1d_taps wgrad: dy %s does not match x %s"
                          % (tuple(dy.shape), tuple(x.shape)))
-    splits, rows = wgrad_splits(B, T, C, N, kw, x.dtype)
+    plan = wgrad_plan(B, T, C, N, kw, x.dtype)
+    r, splits = plan.route, plan.splits
+    x, dy = _dense(x), _dense(dy)
     dev = x.device
     dw = torch.empty(kw, C, N, dtype=torch.float32, device=dev)
     part = (torch.empty(splits, kw, C, N, dtype=torch.float32, device=dev)
             if splits > 1 else None)
-    is_bf16 = x.dtype == torch.bfloat16
-    rc = KERNEL.lib.dv3_conv_taps_wgrad(
-        x.data_ptr(), dy.data_ptr(), 0 if part is None else part.data_ptr(),
-        dw.data_ptr(), B, T, C, N, kw, dil, pad[0], splits, rows,
-        int(is_bf16), int(C % 8 == 0 and _aligned(x)),
-        int(N % 8 == 0 and _aligned(dy)),
-        torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
-    KERNEL.launched("wgrad")
-    KERNEL.check(rc, "conv_taps wgrad launch")
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    args = (x.data_ptr(), dy.data_ptr(),
+            0 if part is None else part.data_ptr(), dw.data_ptr(),
+            B, T, C, N, kw, dil, pad[0], splits, plan.per_split, is_bf16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if r == "simple":
+        rc = KERNEL.lib.dv3_conv_taps_wgrad(
+            *args, int(C % 8 == 0), int(N % 8 == 0), stream, dev.index or 0)
+    else:
+        rc = KERNEL.lib.dv3_conv_taps_wgrad_fast(
+            *args, WGRAD_KBLOCK if kblock is None else kblock, stream,
+            dev.index or 0)
+    KERNEL.check(rc, "conv_taps wgrad launch (%s route)" % r)
+    KERNEL.launched("wgrad_" + r)
     return dw
+
+
+def encode_ms(x, reps=200):
+    """Host ms of one TMA descriptor encode (mean over `reps`), on the
+    device buffer of x, after one untimed encode; a bf16 launch encodes
+    two."""
+    KERNEL.lib.dv3_conv_taps_encode_ns(x.data_ptr(), 1)
+    ns = KERNEL.lib.dv3_conv_taps_encode_ns(x.data_ptr(), reps)
+    KERNEL.check(-ns if ns < 0 else 0, "tensor map encode")
+    return ns / reps / 1e6
 
 
 # ---------------------------------------------------------------------------
@@ -189,19 +305,19 @@ def conv_fwd(x, w, b, pad, dil):
     if _device_kind(x) == "cpu":
         return conv1d_taps_plain(x, w, b, pad, dil)
     check_contract(w.shape[0], pad, dil)
-    return _launch_fwd(x, w.transpose(1, 2), b, pad[0], dil)
+    return _launch_fwd(x, w, b, pad[0], dil)
 
 
 def conv_dgrad(dy, w, pad, dil):
     """Input gradient: the forward on dy with taps flipped and transposed,
-    padding mirrored. The kernel takes the taps as (kw, out, in), which for
-    the flipped-transposed weight is flip(w, 0)."""
+    padding mirrored. In (kw, out, in) form, as the kernel reads taps, the
+    flipped-transposed weight is flip(w, 0): w's taps read in reverse."""
     mirrored = (pad[1], pad[0])
     if _device_kind(dy) == "cpu":
         return conv1d_taps_plain(dy, w.flip(0).transpose(1, 2), None,
                                  mirrored, dil)
     check_contract(w.shape[0], pad, dil)
-    return _launch_fwd(dy, w.flip(0), None, mirrored[0], dil)
+    return _launch_fwd(dy, w, None, mirrored[0], dil, dgrad=True)
 
 
 def conv_wgrad(x, dy, pad, dil, kw):
@@ -230,7 +346,7 @@ class _ConvTaps(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = conv_wgrad(x, dy, ctx.pad, ctx.dil, w.shape[0]).to(w.dtype)
         if ctx.b_dtype is not None and ctx.needs_input_grad[2]:
-            db = dy.float().sum((0, 1)).to(ctx.b_dtype)
+            db = dy.sum((0, 1), dtype=torch.float32).to(ctx.b_dtype)
         return dx, dw, db, None, None
 
 

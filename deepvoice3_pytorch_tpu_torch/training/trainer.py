@@ -272,6 +272,7 @@ def make_train_step(cfg: TTSModelConfig, lc: LossConfig, optimizer, mask,
         if lc.train_seq2seq:
             outputs = model_forward(
                 params, cfg, batch["x"], mel_in,
+                speaker_ids=batch.get("speaker_ids"),
                 text_positions=batch["text_positions"],
                 frame_positions=batch["frame_positions"],
                 input_lengths=batch["input_lengths"],

@@ -136,10 +136,64 @@ def test_cpu_tensors_take_the_plain_version():
 
 @pytest.mark.parametrize("B,T,C,N,dtype", [
     (16, 128, 512, 1024, torch.float32), (16, 512, 256, 512, torch.float32),
-    (64, 128, 256, 512, torch.bfloat16), (1, 7, 3, 5, torch.float32)])
+    (64, 128, 256, 512, torch.bfloat16), (1, 7, 3, 5, torch.float32),
+    (8, 200, 256, 512, torch.bfloat16), (2, 37, 20, 70, torch.bfloat16)])
 def test_wgrad_splits_cover_every_row(B, T, C, N, dtype):
-    splits, rows = conv_cuda.wgrad_splits(B, T, C, N, 3, dtype)
-    M = B * T
-    assert splits >= 1 and rows >= 1
-    assert (splits - 1) * rows < M <= splits * rows
+    """Every row tile (fast route) or row (ragged route) in exactly one
+    split, no split empty, the grid's z inside its limit."""
+    plan = conv_cuda.wgrad_plan(B, T, C, N, 3, dtype)
+    splits, per = plan.splits, plan.per_split
+    units = B * T if plan.route == "simple" else \
+        B * -(-T // plan.tile[2])
+    assert splits >= 1 and per >= 1
+    assert (splits - 1) * per < units <= splits * per
     assert 3 * splits <= 65535
+
+
+# the train step's five conv classes at bench.py's shapes (LJSpeech
+# preset): (C, N, T) of the forward (dgrad swaps C and N), and per type the
+# columns of the forward's and the dgrad's tiles and the wgrad's splits
+BENCH_CLASSES = {
+    "encoder": ((512, 1024, 128), {"f32": (128, 64, 4),
+                                   "bf16": (256, 256, 4)}),
+    "decoder": ((256, 512, 128), {"f32": (64, 64, 5),
+                                  "bf16": (256, 128, 5)}),
+    "converter_2T": ((256, 512, 256), {"f32": (128, 64, 5),
+                                       "bf16": (256, 256, 11)}),
+    "converter_4T": ((256, 512, 512), {"f32": (128, 128, 11),
+                                       "bf16": (256, 256, 11)}),
+    "converter_4T_wide": ((512, 1024, 512), {"f32": (128, 128, 4),
+                                             "bf16": (256, 256, 4)}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BENCH_CLASSES))
+@pytest.mark.parametrize("B,dtype,key,fast,rows", [
+    (16, torch.float32, "f32", "pipe", 32),
+    (64, torch.bfloat16, "bf16", "wgmma", 64)])
+def test_bench_classes_take_the_fast_route(name, B, dtype, key, fast, rows):
+    """Route, tiles and splits of the five classes, fixed from the shape
+    alone: 128-row tiles of one batch item; forward tiles of 256 (bf16) or
+    128 (f32) columns, halved where they would leave half of the 132 SMs
+    idle; wgrad splits in whole waves of one block an SM."""
+    (C, N, T), want = BENCH_CLASSES[name]
+    fwd_cols, dgrad_cols, splits = want[key]
+    assert conv_cuda.fwd_plan(B, T, C, N, dtype) == (fast, (128, fwd_cols))
+    assert conv_cuda.fwd_plan(B, T, N, C, dtype) == (fast, (128, dgrad_cols))
+    plan = conv_cuda.wgrad_plan(B, T, C, N, 3, dtype)
+    assert plan.route == fast and plan.tile == (128, 128, rows)
+    assert plan.splits == splits
+
+
+@pytest.mark.parametrize("B,T,C,N,dtype,route", [
+    (2, 37, 20, 70, torch.bfloat16, "simple"),   # C, N not multiples of 8
+    (2, 37, 20, 70, torch.float32, "simple"),    # N not a multiple of 4
+    (3, 40, 16, 24, torch.bfloat16, "wgmma"),
+    (4, 33, 24, 8, torch.float32, "pipe"),
+    (3, 40, 12, 24, torch.bfloat16, "simple"),   # C = 12: 24-byte rows
+    (3, 40, 12, 24, torch.float32, "pipe"),      # 48-byte rows
+])
+def test_route_is_chosen_from_the_shape(B, T, C, N, dtype, route):
+    assert conv_cuda.route(C, N, dtype) == route
+    assert conv_cuda.fwd_plan(B, T, C, N, dtype)[0] == route
+    assert conv_cuda.wgrad_plan(B, T, C, N, 3, dtype).route == route

@@ -12,7 +12,9 @@ modes (per-row positions and context scales, a text-bucket growth between
 launches, a ring placement that changes with the bucket), a tiny model's
 continuous batcher on the card against the CPU, and the ragged
 edges of the tap-accumulating conv (T, C, N off the tiles, B = 1, taps
-wholly in the pad) with the determinism of its weight gradient.
+wholly in the pad) on the route each shape takes (counted per route), the
+bf16 forward and input gradient at both tile widths, and the determinism
+of its weight gradient.
 
 Marked `cuda`: each test skips when no CUDA device is present. On a machine
 with a card (the JAX package need not be installed):
@@ -597,12 +599,17 @@ def test_griffin_lim_kernel_rejects_bad_framing(dev):
         gl_cuda.griffin_lim(S, 1024, 240, torch.ones(1024).numpy())
 
 
-CONV_CASES = [  # B, T, C, N, kw, dil, causal
-    (2, 37, 20, 70, 3, 1, False),      # T, C, N off every tile
-    (1, 130, 64, 128, 3, 3, True),     # B = 1, causal
-    (3, 40, 16, 24, 3, 27, False),     # dilation 27, T < 54: taps in the pad
-    (2, 300, 256, 512, 3, 9, True),    # decoder width, several row tiles
-    (4, 33, 24, 8, 5, 1, False),       # kw 5, N below one tile
+CONV_CASES = [  # B, T, C, N, kw, dil, causal, fast route (C, N % 8 == 0)
+    (2, 37, 20, 70, 3, 1, False, False),    # T, C, N off every tile
+    (1, 130, 64, 128, 3, 3, True, True),     # B = 1, causal
+    (3, 40, 16, 24, 3, 27, False, True),     # dilation 27, T < 54: taps in the pad
+    (2, 40, 16, 24, 3, 27, True, True),      # the same, causal
+    (2, 300, 256, 512, 3, 9, True, True),    # decoder width, several row tiles
+    (4, 33, 24, 8, 5, 1, False, True),       # kw 5, N below one tile
+    (3, 200, 64, 136, 3, 3, False, True),    # ragged last tile of every item
+    (2, 128, 64, 64, 3, 9, False, True),     # T exactly one tile
+    (2, 128, 512, 1024, 3, 9, False, True),  # the encoder class at B = 2
+    (2, 37, 12, 20, 3, 1, False, False),     # 24-byte bf16 rows; f32 takes the pipe
 ]
 
 
@@ -617,16 +624,22 @@ def _conv_inputs(dev, B, T, C, N, kw, dil, causal, dtype, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,C,N,kw,dil,causal", CONV_CASES)
+@pytest.mark.parametrize("B,T,C,N,kw,dil,causal,fast", CONV_CASES)
 def test_conv_taps_kernel_matches_plain(dev, dtype, B, T, C, N, kw, dil,
-                                        causal):
+                                        causal, fast):
     """Forward, dgrad and wgrad kernels against the plain versions on the
-    same card. f32: 1e-5 of the output's scale (the kernel's FMA order
-    against the plain matmul's). bf16: the plain version computes in f32
-    from the same bf16 operands and rounds once, so the bar is one bf16
-    ulp of the largest value (2^-7 relative) for the bf16 outputs and 1e-5
-    for the f32 weight gradient."""
+    same card, through the route the shape selects (counted per route).
+    f32: 1e-5 of the output's scale (the kernel's FMA order against the
+    plain matmul's). bf16: the plain version computes in f32 from the same
+    bf16 operands and rounds once, so the bar is one bf16 ulp of the
+    largest value (2^-7 relative) for the bf16 outputs and 1e-5 for the
+    f32 weight gradient."""
     x, w, b, dy, pad = _conv_inputs(dev, B, T, C, N, kw, dil, causal, dtype)
+    route = conv_cuda.route(C, N, dtype)
+    if dtype == torch.bfloat16:
+        assert route == ("wgmma" if fast else "simple")
+    else:
+        assert route == ("pipe" if C % 4 == 0 and N % 4 == 0 else "simple")
     conv_cuda.KERNEL.reset_counts()
     pairs = [
         (conv_cuda.conv_fwd(x, w, b, pad, dil),
@@ -639,7 +652,8 @@ def test_conv_taps_kernel_matches_plain(dev, dtype, B, T, C, N, kw, dil,
          torch.float32),
     ]
     torch.cuda.synchronize()
-    assert conv_cuda.KERNEL.by_entry == {"fwd": 2, "wgrad": 1}
+    assert conv_cuda.KERNEL.by_entry == {"fwd_" + route: 2,
+                                         "wgrad_" + route: 1}
     for got, want, out_dtype in pairs:
         assert got.dtype == out_dtype and got.shape == want.shape
         scale = max(1.0, float(want.float().abs().max()))
@@ -648,15 +662,59 @@ def test_conv_taps_kernel_matches_plain(dev, dtype, B, T, C, N, kw, dil,
         assert err <= tol * scale, (err, scale)
 
 
+@pytest.mark.parametrize("B,T,C,N,dil,causal,tile_n", [
+    (2, 300, 256, 512, 9, True, 256),    # ragged last time tile
+    (3, 40, 16, 24, 27, True, 256),      # taps in the pad, N below the tile
+    (2, 128, 64, 136, 3, False, 256),    # one ragged column tile
+    (2, 130, 64, 72, 1, False, 128),
+])
+def test_conv_taps_bf16_tile_widths_match_plain(dev, B, T, C, N, dil, causal,
+                                                tile_n):
+    """The bf16 forward (the weight read in place, "in, out") and dgrad
+    (its taps read in reverse) at either tile width (fwd_plan picks 256
+    columns only from half a wave of blocks, so small shapes name it here):
+    the bf16 bar of test_conv_taps_kernel_matches_plain."""
+    x, w, b, dy, pad = _conv_inputs(dev, B, T, C, N, 3, dil, causal,
+                                    torch.bfloat16)
+    pairs = [
+        (conv_cuda._launch_fwd(x, w, b, pad[0], dil, False, tile_n),
+         conv_cuda.conv1d_taps_plain(x, w, b, pad, dil)),
+        (conv_cuda._launch_fwd(dy, w, None, pad[1], dil, True, tile_n),
+         conv_cuda.conv1d_taps_plain(dy, w.flip(0).transpose(1, 2), None,
+                                     (pad[1], pad[0]), dil)),
+    ]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        scale = max(1.0, float(want.float().abs().max()))
+        assert float((got.float() - want.float()).abs().max()) <= \
+            2.0 ** -7 * scale
+
+
+@pytest.mark.parametrize("dtype,tile_n", [
+    (torch.float32, 256), (torch.float32, 32),
+    (torch.bfloat16, 64), (torch.bfloat16, 512)])
+def test_conv_taps_fwd_refuses_other_tile_widths(dev, dtype, tile_n):
+    """The fast forward launches only the tile widths it was built for; any
+    other raises and counts no launch."""
+    x, w, b, dy, pad = _conv_inputs(dev, 2, 130, 64, 72, 3, 1, False, dtype)
+    conv_cuda.KERNEL.reset_counts()
+    with pytest.raises(RuntimeError, match="forward launch"):
+        conv_cuda._launch_fwd(x, w, b, pad[0], 1, False, tile_n)
+    assert conv_cuda.KERNEL.launches == 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_taps_wgrad_is_deterministic(dev, dtype):
-    """Split rows summed in a fixed order, no atomics: bit-equal runs."""
+    """Split rows summed in a fixed order, no atomics: bit-equal runs on
+    the fast route."""
     x, w, b, dy, pad = _conv_inputs(dev, 8, 200, 256, 512, 3, 3, False,
                                     dtype)
-    splits, _ = conv_cuda.wgrad_splits(8, 200, 256, 512, 3, dtype)
-    assert splits > 1
+    plan = conv_cuda.wgrad_plan(8, 200, 256, 512, 3, dtype)
+    assert plan.splits > 1 and plan.route != "simple"
+    conv_cuda.KERNEL.reset_counts()
     a = conv_cuda.conv_wgrad(x, dy, pad, 3, 3)
     c = conv_cuda.conv_wgrad(x, dy, pad, 3, 3)
+    assert conv_cuda.KERNEL.by_entry == {"wgrad_" + plan.route: 2}
     assert torch.equal(a, c)
 
 
@@ -668,7 +726,7 @@ def test_conv_taps_autograd_runs_three_kernels(dev):
     leaves = [a.clone().requires_grad_(True) for a in (x, w, b)]
     conv_cuda.KERNEL.reset_counts()
     conv_cuda.conv1d_taps(*leaves, pad, 1).backward(dy)
-    assert conv_cuda.KERNEL.by_entry == {"fwd": 2, "wgrad": 1}
+    assert conv_cuda.KERNEL.by_entry == {"fwd_pipe": 2, "wgrad_pipe": 1}
     ref = [a.clone().requires_grad_(True) for a in (x, w, b)]
     conv_cuda.conv1d_taps_plain(*ref, pad, 1).backward(dy)
     for got, want in zip(leaves, ref):

@@ -12,6 +12,12 @@ from deepvoice3_pytorch_tpu import builder as jb
 from deepvoice3_pytorch_tpu_torch import builder as tb
 from deepvoice3_pytorch_tpu_torch.params import ParamTree, params_from_jax
 
+# The Tier-1 command runs six pytest workers on the machine's cores. torch's
+# intra-op pool in each would take every core, and the workers' OpenMP
+# threads then spin against each other: a 10 s train-step test took minutes.
+# One thread a worker.
+torch.set_num_threads(1)
+
 # LJSpeech structure (r=1, downsample_step=4 -> two convT layers, memory
 # mask, key/value projections, monotonic attention) at narrow widths
 TINY = dict(n_vocab=149, embed_dim=32, mel_dim=16, linear_dim=65, r=1,
