@@ -62,8 +62,9 @@ def build(source):
 
 class Kernel:
     """One CUDA source: its library, loaded on first use, and a count of the
-    launches its wrapper made (one per call of a C entry point), in all and
-    by the wrapper's name for the call (`by_entry`)."""
+    launches its wrapper made (one per call of a C entry point), in all, by
+    the wrapper's name for the call (`by_entry`) and, where the wrapper
+    names one, by the route the call took (`by_route`)."""
 
     def __init__(self, source, signatures):
         self.source = source
@@ -72,14 +73,18 @@ class Kernel:
         self.build_log = ""
         self.launches = 0
         self.by_entry = {}
+        self.by_route = {}
 
-    def launched(self, entry):
+    def launched(self, entry, route=None):
         self.launches += 1
         self.by_entry[entry] = self.by_entry.get(entry, 0) + 1
+        if route is not None:
+            self.by_route[route] = self.by_route.get(route, 0) + 1
 
     def reset_counts(self):
         self.launches = 0
         self.by_entry = {}
+        self.by_route = {}
 
     @property
     def lib(self):

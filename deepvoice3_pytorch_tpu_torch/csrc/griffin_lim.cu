@@ -7,346 +7,803 @@
 // (`fold` = 0 here). It follows their numerics: the synthesis and analysis
 // products take bf16 operands and accumulate in f32; overlap-add is f32
 // times the pre-inverted normaliser; the re-framed signal is cast to bf16
-// before analysis; momentum and the magnitude projection
-// (rsqrt(a^2 + 1e-30)) run in f32 against the bf16 previous projection; the
-// carries are stored in bf16; the SPSI increments are wrapped mod 2 pi
-// before the frame cumsum.
+// before analysis (after the f32 analysis window when unfolded); momentum
+// and the magnitude projection (rsqrt(a^2 + 1e-30)) run in f32 against the
+// bf16 previous projection; the carries are stored in bf16; the SPSI
+// increments are wrapped mod 2 pi before the frame cumsum, which
+// accumulates in f64.
 //
 // Windows. fold = 1 (gl_pallas's default): the windows are folded into the
 // bf16 DFT matrices. fold = 0 (the probe's schedule): the matrices are the
 // plain bf16 DFT, the synthesis window multiplies each frame chunk in f32
 // before overlap-add, and the analysis window multiplies the f32 overlap-add
-// signal as the analysis GEMM loads it, before the cast to bf16.
+// signal before the cast to bf16.
 //
-// Start. init = zero phase, SPSI, or a given (re, im) spectrum on which the
-// magnitudes are re-imposed: c = bf16(i * S * rsqrt(i_re^2 + i_im^2 + 1e-30)).
-// The first n_pinned frames of each item keep those start values through
-// every iteration (the analysis epilogue writes them instead of the
-// projection; the previous projection is still updated), so a streaming
-// window stays consistent with audio already played. With spec_re/spec_im
-// set, the final carry is returned de-interleaved as f32.
+// Start. init = zero phase; SPSI; a given (re, im) spectrum on which the
+// magnitudes are re-imposed, c = bf16(i * S * rsqrt(i_re^2 + i_im^2 +
+// 1e-30)); or anchored, the start of a streaming window: its first n_pinned
+// frames take the previous window's retrieved spectrum (init_re / init_im,
+// item stride init_stride) and the later ones the SPSI phase shifted per
+// bin by atan2(im, re) of the last context frame minus the SPSI phase
+// there, both with the magnitudes re-imposed (streaming.gl_window's start,
+// formerly built from eager ops around the call). The first n_pinned frames
+// of each item keep their start values through every iteration (the
+// analysis epilogue writes them instead of the projection; the previous
+// projection is still updated), so a streaming window stays consistent with
+// audio already played. With spec_re/spec_im set, the final carry is
+// returned de-interleaved as f32.
 //
-// Design. The TPU kernel keeps one item's whole retrieval in VMEM (about
-// 13 MB at n = 600); that does not fit in an SM's 227 KB of shared memory,
-// so here every iteration is a short sequence of launches over the whole
-// batch, all issued by one call of `dv3_griffin_lim` on the caller's stream:
-//   1. spsi_init: one thread per (item, bin), a sequential wrapped phase
-//      cumsum over the frames (zero phase: the magnitudes); or given_init:
-//      one thread per (frame, bin);
-//   2. gemm<SYNTH>: frames (B*n, fft) f32 = carry (B*n, 2F) bf16 x inverse
-//      DFT (2F, fft) bf16;
-//   3. ola: sums the k = fft/hop overlapping chunks into y (B, n+k-1, hop),
-//      times the inverse normaliser; one thread per output sample, so the
-//      sum is deterministic (no atomics);
-//   4. gemm<ANALYSIS>: reads frames straight from y (A[f, t] =
-//      bf16(y_item[f*hop + t])) against the forward DFT, with momentum,
-//      projection, pinning and the bf16 carry writes in its epilogue;
-//   and after the last iteration a final gemm<SYNTH> + ola into the output,
-//   then spec_out when the carry is returned.
-// The spectra are stored with re/im interleaved per bin ((B*n, 2F) bf16),
-// so the products need no concatenation and each thread of the analysis
-// epilogue holds the (re, im) pair of a bin in adjacent accumulators.
+// Layout. M = B*n frames. The spectra are (M, 2F) bf16 with re/im
+// interleaved per bin, rows Kp apart, so that each thread of the analysis
+// epilogue holds the (re, im) pair of a bin in adjacent accumulators. An
+// iteration is three steps:
+//   1. synthesis GEMM: frames (M, fft) f32 = carry (M, 2F) x synT^T, synT
+//      (fft, 2F) the inverse DFT transposed (K-major);
+//   2. overlap-add: one thread per 4 output samples sums the k = fft/hop
+//      overlapping chunks in a fixed order, times the inverse normaliser,
+//      and writes the bf16 re-framed signal a16
+//      (M, fft): a16[b*n + f, c*hop + j] = bf16(y_b[f + c, j]) (times the
+//      window in f32 first when unfolded), so that the analysis is a plain
+//      GEMM for any hop;
+//   3. analysis GEMM: a16 x anaT^T, anaT (2F, fft) the forward DFT, with
+//      momentum, projection, pinning and the two bf16 carry writes in its
+//      epilogue.
+// A start step precedes the first iteration, and a last synthesis and
+// overlap-add into the f32 waveform (with the returned spectrum) follows the
+// last. No sum uses atomics: two runs of a call are bit-equal.
 //
 // What bounds it. At LJSpeech shapes (B = 32, n = 400, F = 513, fft = 1024)
-// each iteration is two GEMMs of about 28 GFLOP each, so the loop is bound by
-// tensor-core throughput. The GEMMs here are the simple form: 64 x 64 tiles,
-// four warps issuing mma.sync m16n8k16 bf16 from shared memory, no
-// multi-stage pipelining; wgmma and TMA are later work. A streaming window
-// at B = 1 (40 to 152 frames) gives each GEMM only 16 to 51 blocks on 132
-// SMs, each walking the whole K = 1024 or 1056; measured on the H100, the
-// device is busy for most of such a window's host time despite its ~100
-// launches (PERF.md), so more blocks per GEMM (split K) come before a CUDA
-// graph of the launches.
+// each iteration is two GEMMs of about 28 GFLOP each: the bf16 tensor cores
+// bound it. A streaming or serving window (40 to 1240 rows) is bound by
+// latency: its GEMMs are tens of MFLOP, and every output tile needs the
+// window's whole K of both operands brought into one SM.
+//
+// Design. Both GEMMs are TMA + wgmma, warp specialised (hopper.cuh): one
+// producer warp keeps cp.async.bulk.tensor loads of 64-deep K stages in
+// flight on an mbarrier ring, 128-byte swizzle; consumer warpgroups run
+// wgmma.mma_async on the stages that have arrived. The tensor maps read the
+// 2F-wide spectra with their true width, so TMA's zero fill makes the K and
+// N tails free and no pad column is ever read. Two routes, chosen from the
+// shape by dsp/gl_cuda.py:gl_plan:
+//   * batch (B*n fills the card with 128-row tiles): one launch per step,
+//     two consumer warpgroups on 128 x 256 synthesis tiles (m64n256) and
+//     128 x 208 analysis tiles (m64n208: 5 tiles cover the 1026 columns),
+//     4-stage rings (clusters of two CTAs sharing their B tile by TMA
+//     multicast, and two CTAs an SM on 128 x 128 / 128 x 104 tiles,
+//     measured slower on the H100);
+//   * window: the whole retrieval in ONE cooperative launch of a persistent
+//     kernel (every block co-resident; grid sized from the occupancy), one
+//     consumer warpgroup on 64-row tiles 32 or 64 columns wide, or two on
+//     128 x 128 tiles for the larger windows. Neither GEMM is split along
+//     K: the partial sums cost more than the idle SMs they would fill. A
+//     grid barrier separates the steps; it traps after ten seconds, like
+//     the mbarrier waits, rather than hang the card. The epilogues' generic
+//     stores are read by the next step's TMA loads (the async proxy), so
+//     each barrier is fenced with fence.proxy.async; data written during
+//     the launch is read with ld.global.cg (L2), never through a stale L1.
+//     The same kernel also runs one launch per step (one_launch = 0): a
+//     CUDA graph of those launches measured no faster than the one launch.
+// The start, overlap-add and returned-spectrum steps are plain one-thread-
+// per-element code: a few percent of a call.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include <algorithm>
+
+#include "hopper.cuh"
+
+typedef __nv_bfloat16 bf16;
 
 // Field order and types match dsp/gl_cuda.py:_Args.
 struct GriffinLimArgs {
   const float* S;              // (B, n, F) magnitudes
   const float* inorm;          // (n + k - 1, hop) inverse OLA normaliser
-  const __nv_bfloat16* synT;   // (fft, Kp): row t, col 2f|2f+1 = inv re|im
-  const __nv_bfloat16* anaT;   // (Np, fft): row 2f|2f+1 = fwd re|im
+  const bf16* synT;            // (fft, Kp): row t, col 2f|2f+1 = inv re|im
+  const bf16* anaT;            // (2F, fft): row 2f|2f+1 = fwd re|im
   const float* win;            // (fft) window, applied here when fold == 0
-  const float* init_re;        // (B, n, F) given start (init == INIT_GIVEN)
-  const float* init_im;
-  __nv_bfloat16* c;            // (B*n, Kp) spectrum carry, pad columns zero
-  __nv_bfloat16* tp;           // (B*n, 2F) previous projection carry
-  __nv_bfloat16* pin;          // (B, n_pinned, 2F) pinned start values
-  float* frames;               // (B*n, fft) scratch
-  float* y;                    // (B, n + k - 1, hop) scratch
+  const float* init_re;        // given: (B, n, F); anchored: (B, n_pinned, F)
+  const float* init_im;        //   context, items init_stride apart
+  bf16* c;                     // (M, Kp) spectrum carry
+  bf16* tp;                    // (M, 2F) previous projection carry
+  bf16* pin;                   // (B, n_pinned, 2F) pinned start values
+  float* frames;               // (M, fft) synthesised frames
+  bf16* a16;                   // (M, fft) re-framed signal for the analysis
   float* out;                  // (B, n + k - 1, hop) waveform
   float* spec_re;              // (B, n, F) final carry, or null
   float* spec_im;
-  int B, n, F, fft, hop, Kp, Np, n_iters, init, n_pinned, fold;
+  unsigned* sync;              // window route, one launch: 2 counters, zero
+  unsigned long long* trace;   // window route: (steps + 1, 1024, 2) stamps,
+                               //   or null (see gl_window)
+  long long init_stride;       // elements between items of init_re / init_im
+  int B, n, F, fft, hop, Kp, n_iters, init, n_pinned, fold;
+  int route, bm, bn, one_launch;
   float momentum, omega_scale; // omega_scale = 2 pi hop / fft
 };
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 32, LDS = BK + 8;
-constexpr int GEMM_THREADS = 128;
-// at most 72 registers a thread, so that seven blocks fit on an SM: left
-// alone, ptxas gave the synthesis GEMM 80 registers, six blocks per SM, and
-// the 3200 blocks of a (32 x 400)-row synthesis a fifth, nearly empty wave
-// (PERF.md)
-constexpr int GEMM_MIN_BLOCKS = 7;
+constexpr int GK = 64;        // K per stage: 64 bf16, one 128-byte row
+constexpr int BATCH_BM = 128, BATCH_THREADS = 288;   // 2 warpgroups + producer
+constexpr int BATCH_BN_SYN = 256, BATCH_BN_ANA = 208;
+constexpr int BATCH_STAGES = 4;
+// The window route's tiles: 64 rows (one consumer warpgroup) 32 or 64
+// columns wide, or 128 x 128 (two) for the larger windows, where it
+// measured fastest (narrow tiles re-read the window's rows once per column
+// tile). The ring holds all or most of a tile's 16-17 K-stages: 16 stages
+// of 12 KB at 32 columns (one block an SM), 6 of 16 KB at 64 (two blocks
+// an SM: their tiles outnumber the SMs), 6 of 32 KB at 128 x 128 (one).
+template <int NWG>
+__host__ __device__ constexpr int win_threads() { return 128 * NWG + 32; }
+template <int BN>
+__host__ __device__ constexpr int win_stages() {
+  return BN == 32 ? 16 : 6;
+}
+template <int BN>
+__host__ __device__ constexpr int win_blocks() { return BN == 64 ? 2 : 1; }
+constexpr int TRACE_BLOCKS = 1024;   // trace stamps kept for blocks below
 enum { SYNTH = 0, ANALYSIS = 1 };
-enum { INIT_ZERO = 0, INIT_SPSI = 1, INIT_GIVEN = 2 };  // dsp/gl_cuda.py
+enum { INIT_ZERO = 0, INIT_SPSI = 1, INIT_GIVEN = 2, INIT_ANCHORED = 3 };
+enum { ROUTE_BATCH = 0, ROUTE_WINDOW = 1 };          // dsp/gl_cuda.py
+
+__host__ __device__ constexpr uint32_t stage_bytes(int bm, int bn) {
+  return (bm + bn) * GK * 2;
+}
+constexpr size_t ring_smem(int stages, int bm, int bn) {
+  return (size_t)stages * stage_bytes(bm, bn) + 2 * stages * 8 + 1024;
+}
+
+unsigned cdiv(long a, long b) { return (unsigned)((a + b - 1) / b); }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ __nv_bfloat162 unpack_bf16(uint32_t u) {
+  return *reinterpret_cast<__nv_bfloat162*>(&u);
 }
 
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// a 32-bit (re, im) pair written earlier in this launch, read from L2
+__device__ __forceinline__ uint32_t ldcg_pair(const bf16* p) {
+  return __ldcg(reinterpret_cast<const unsigned int*>(p));
 }
 
-__global__ void spsi_init(const GriffinLimArgs a) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= a.B * a.F) return;
-  const int b = idx / a.F, bin = idx % a.F;
+// ---------------------------------------------------------------------------
+// start, overlap-add, returned spectrum: one thread per element
+// ---------------------------------------------------------------------------
+
+// The start is the plain version's (gl_cuda.py) as torch computes it on the
+// card, operation by operation and bit for bit: each operation rounded once
+// (no contraction into FMAs), the same cosf / sinf / atan2f / rsqrtf, and
+// the SPSI phase the cumsum of the wrapped increments accumulated in f64 and
+// rounded per frame (stft.spsi_phase). The start is pinned or fed back to
+// the next window, and Griffin-Lim amplifies a bf16 rounding that differs
+// there into the whole streamed signal.
+__device__ __forceinline__ uint32_t reimpose(float m, float re, float im) {
+  const float ss = __fadd_rn(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)),
+                             1e-30f);
+  const float scale = __fmul_rn(m, rsqrtf(ss));
+  return pack_bf16(__fmul_rn(re, scale), __fmul_rn(im, scale));
+}
+
+// zero, SPSI or anchored start of one (item, bin): the SPSI phase is a
+// cumsum over the frames, so one thread walks them in order
+__device__ void init_sequential(const GriffinLimArgs& a, int b, int bin) {
   const float two_pi = 6.28318530717958647692f;
-  float phi = 0.0f;
+  const int F2 = 2 * a.F;
+  double phi_sum = 0.0;
+  float delta = 0.0f;
   for (int f = 0; f < a.n; ++f) {
     const size_t m_row = (size_t)b * a.n + f;
     const float* row = a.S + m_row * a.F;
     const float m = row[bin];
-    float re = m, im = 0.0f;
-    if (a.init == INIT_SPSI) {
+    uint32_t v = pack_bf16(m, 0.0f);
+    if (a.init != INIT_ZERO) {
       const float left = bin > 0 ? row[bin - 1] : m;
       const float right = bin < a.F - 1 ? row[bin + 1] : m;
-      const float denom = left - 2.0f * m + right;
-      float p = fabsf(denom) > 1e-12f ? 0.5f * (left - right) / denom : 0.0f;
+      const float denom = __fadd_rn(__fsub_rn(left, __fmul_rn(2.0f, m)),
+                                    right);
+      float p = fabsf(denom) > 1e-12f
+                    ? __fdiv_rn(__fmul_rn(0.5f, __fsub_rn(left, right)), denom)
+                    : 0.0f;
       p = fminf(fmaxf(p, -0.5f), 0.5f);
-      float om = a.omega_scale * ((float)bin + p);
-      om = om - two_pi * floorf(om / two_pi);
-      phi += om;
-      re = m * cosf(phi);
-      im = m * sinf(phi);
+      float om = __fmul_rn(a.omega_scale, __fadd_rn((float)bin, p));
+      om = __fsub_rn(om, __fmul_rn(two_pi, floorf(__fdiv_rn(om, two_pi))));
+      phi_sum += (double)om;
+      const float phi = (float)phi_sum;
+      if (a.init == INIT_SPSI) {
+        v = pack_bf16(__fmul_rn(m, cosf(phi)), __fmul_rn(m, sinf(phi)));
+      } else if (f < a.n_pinned) {   // anchored, a context frame
+        const size_t ci = (size_t)b * a.init_stride + (size_t)f * a.F + bin;
+        const float re = a.init_re[ci], im = a.init_im[ci];
+        if (f == a.n_pinned - 1) delta = __fsub_rn(atan2f(im, re), phi);
+        v = reimpose(m, re, im);
+      } else {                         // anchored, a later frame
+        const float ph = __fadd_rn(phi, delta);
+        v = reimpose(m, __fmul_rn(m, cosf(ph)), __fmul_rn(m, sinf(ph)));
+      }
     }
-    *reinterpret_cast<uint32_t*>(a.c + m_row * a.Kp + 2 * bin) =
-        pack_bf16(re, im);
+    *reinterpret_cast<uint32_t*>(a.c + m_row * a.Kp + 2 * bin) = v;
+    if (f < a.n_pinned)
+      *reinterpret_cast<uint32_t*>(
+          a.pin + ((size_t)b * a.n_pinned + f) * F2 + 2 * bin) = v;
+    *reinterpret_cast<uint32_t*>(a.tp + m_row * F2 + 2 * bin) = 0u;
   }
 }
 
-// one thread per (row, bin): re-impose S on the given start; pinned frames
-// keep a copy, because c is overwritten every iteration
-__global__ void given_init(const GriffinLimArgs a) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)a.B * a.n * a.F) return;
-  const size_t m_row = idx / a.F;
-  const int bin = idx % a.F;
-  const float re = a.init_re[idx], im = a.init_im[idx];
-  const float scale = a.S[idx] * rsqrtf(re * re + im * im + 1e-30f);
-  const uint32_t v = pack_bf16(re * scale, im * scale);
-  *reinterpret_cast<uint32_t*>(a.c + m_row * a.Kp + 2 * bin) = v;
+// given start of one (row, bin): re-impose S; pinned frames keep a copy,
+// because c is overwritten every iteration
+__device__ void init_given(const GriffinLimArgs& a, unsigned idx) {
+  const unsigned m_row = idx / a.F;
+  const int bin = idx - m_row * a.F, F2 = 2 * a.F;
+  const uint32_t v = reimpose(a.S[idx], a.init_re[idx], a.init_im[idx]);
+  *reinterpret_cast<uint32_t*>(a.c + (size_t)m_row * a.Kp + 2 * bin) = v;
   const int f = m_row % a.n;
   if (f < a.n_pinned)
     *reinterpret_cast<uint32_t*>(
-        a.pin + ((m_row / a.n) * a.n_pinned + f) * 2 * a.F + 2 * bin) = v;
+        a.pin + ((size_t)(m_row / a.n) * a.n_pinned + f) * F2 + 2 * bin) = v;
+  *reinterpret_cast<uint32_t*>(a.tp + (size_t)m_row * F2 + 2 * bin) = 0u;
 }
 
-// the final carry, de-interleaved to f32 (B, n, F) re and im
-__global__ void spec_out(const GriffinLimArgs a) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)a.B * a.n * a.F) return;
-  const size_t m_row = idx / a.F;
-  const int bin = idx % a.F;
+// 32-bit indices: the wrapper keeps every plane below 2^31 elements
+__device__ __forceinline__ void init_elem(const GriffinLimArgs& a,
+                                          unsigned idx) {
+  if (a.init == INIT_GIVEN) {
+    if (idx < (unsigned)(a.B * a.n * a.F)) init_given(a, idx);
+  } else if (idx < (unsigned)(a.B * a.F)) {
+    init_sequential(a, idx / a.F, idx % a.F);
+  }
+}
+
+// Overlap-add of output samples 4 q .. 4 q + 3 of (B, n + k - 1, hop)
+// (hop % 4 == 0, k = fft / hop <= KMAX): ola_load issues the k chunk loads,
+// ola_store sums them in chunk order, times the inverse normaliser, into
+// the waveform (final) or into the bf16 re-framed copies of a16.
+constexpr int KMAX = 4;
+struct OlaPos {
+  int j, r, b;
+};
+
+__device__ __forceinline__ OlaPos ola_pos(const GriffinLimArgs& a,
+                                          unsigned q) {
+  const int nb = a.n + a.fft / a.hop - 1, hq = a.hop / 4;
+  const unsigned row = q / hq, rb = row / nb;
+  return {4 * (int)(q - row * hq), (int)(row - rb * nb), (int)rb};
+}
+
+__device__ __forceinline__ void ola_load(const GriffinLimArgs& a, OlaPos o,
+                                         float4 (&v)[KMAX]) {
+  const int k = a.fft / a.hop;
+  // frame r - c, chunk c
+  const float* src = a.frames + ((size_t)o.b * a.n + o.r) * a.fft + o.j;
+#pragma unroll
+  for (int c = 0; c < KMAX; ++c)
+    if (c < k && o.r - c >= 0 && o.r - c < a.n)
+      v[c] = __ldcg(reinterpret_cast<const float4*>(
+          src - (size_t)c * a.fft + c * a.hop));
+}
+
+__device__ __forceinline__ float4 mul4(float4 x, float4 w) {
+  return make_float4(__fmul_rn(x.x, w.x), __fmul_rn(x.y, w.y),
+                     __fmul_rn(x.z, w.z), __fmul_rn(x.w, w.w));
+}
+
+__device__ __forceinline__ void ola_store(const GriffinLimArgs& a, unsigned q,
+                                          OlaPos o, const float4 (&v)[KMAX],
+                                          bool final) {
+  const int k = a.fft / a.hop;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int c = 0; c < KMAX; ++c) {
+    if (c >= k || o.r - c < 0 || o.r - c >= a.n) continue;
+    // unfolded: synthesis window in f32, rounded before the sum (no FMA)
+    const float4 x =
+        a.fold ? v[c]
+               : mul4(v[c], *reinterpret_cast<const float4*>(a.win + c * a.hop +
+                                                             o.j));
+    acc = make_float4(acc.x + x.x, acc.y + x.y, acc.z + x.z, acc.w + x.w);
+  }
+  const float4 y = mul4(
+      acc, *reinterpret_cast<const float4*>(a.inorm + o.r * a.hop + o.j));
+  if (final) {
+    *reinterpret_cast<float4*>(a.out + 4 * (size_t)q) = y;
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < KMAX; ++c) {
+    const int f = o.r - c;
+    if (c >= k || f < 0 || f >= a.n) continue;
+    // unfolded: analysis window in f32, then the bf16 cast
+    const float4 z = a.fold ? y : mul4(y, *reinterpret_cast<const float4*>(
+                                              a.win + c * a.hop + o.j));
+    *reinterpret_cast<uint2*>(
+        a.a16 + ((size_t)o.b * a.n + f) * a.fft + c * a.hop + o.j) =
+        make_uint2(pack_bf16(z.x, z.y), pack_bf16(z.z, z.w));
+  }
+}
+
+// quads first, first + stride, ... below quads, Q at a time: all their
+// loads issued before any sum, so a thread waits on memory once per Q
+template <int Q>
+__device__ void ola_quads(const GriffinLimArgs& a, unsigned first,
+                          unsigned stride, unsigned quads, bool final) {
+  for (unsigned q0 = first; q0 < quads; q0 += Q * stride) {
+    float4 v[Q][KMAX];
+    OlaPos o[Q];
+#pragma unroll
+    for (int u = 0; u < Q; ++u) {
+      const unsigned q = q0 + u * stride;
+      if (q >= quads) continue;
+      o[u] = ola_pos(a, q);
+      ola_load(a, o[u], v[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < Q; ++u) {
+      const unsigned q = q0 + u * stride;
+      if (q < quads) ola_store(a, q, o[u], v[u], final);
+    }
+  }
+}
+
+// the final carry of (row, bin), de-interleaved to f32
+__device__ __forceinline__ void spec_elem(const GriffinLimArgs& a,
+                                          unsigned idx) {
+  const unsigned m_row = idx / a.F;
+  const int bin = idx - m_row * a.F;
   const __nv_bfloat162 v =
-      *reinterpret_cast<const __nv_bfloat162*>(a.c + m_row * a.Kp + 2 * bin);
+      unpack_bf16(ldcg_pair(a.c + (size_t)m_row * a.Kp + 2 * bin));
   a.spec_re[idx] = __low2float(v);
   a.spec_im[idx] = __high2float(v);
 }
 
-// FOLD = 0: the analysis window multiplies the A operand (unfolded mode)
-template <int MODE, bool FOLD = true>
-__global__ void __launch_bounds__(GEMM_THREADS, GEMM_MIN_BLOCKS)
-    gemm(const GriffinLimArgs a) {
-  __shared__ __align__(16) __nv_bfloat16 As[BM][LDS];
-  __shared__ __align__(16) __nv_bfloat16 Bs[BN][LDS];
-  const int M = a.B * a.n;
-  const int K = MODE == SYNTH ? a.Kp : a.fft;
-  const __nv_bfloat16* BT = MODE == SYNTH ? a.synT : a.anaT;
-  const int nb = a.n + a.fft / a.hop - 1;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, tg = lane & 3;
+// ---------------------------------------------------------------------------
+// GEMM pieces: producer, consumer warpgroup, epilogues
+// ---------------------------------------------------------------------------
 
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK / 8; i += GEMM_THREADS) {
-      const int r = i >> 2, c8 = (i & 3) * 8, m = m0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M) {
-        if (MODE == SYNTH) {
-          v = *reinterpret_cast<const uint4*>(a.c + (size_t)m * a.Kp + k0 +
-                                              c8);
-        } else {
-          // frame f of item b is y_b[f*hop : f*hop + fft]
-          const int b = m / a.n, f = m % a.n;
-          const float* src =
-              a.y + ((size_t)b * nb + f) * a.hop + k0 + c8;
-          float4 lo = *reinterpret_cast<const float4*>(src);
-          float4 hi = *reinterpret_cast<const float4*>(src + 4);
-          if (!FOLD) {  // analysis window in f32, then the bf16 cast
-            const float4 wl = *reinterpret_cast<const float4*>(a.win + k0 + c8);
-            const float4 wh =
-                *reinterpret_cast<const float4*>(a.win + k0 + c8 + 4);
-            lo = make_float4(lo.x * wl.x, lo.y * wl.y, lo.z * wl.z,
-                             lo.w * wl.w);
-            hi = make_float4(hi.x * wh.x, hi.y * wh.y, hi.z * wh.z,
-                             hi.w * wh.w);
-          }
-          v = make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w),
-                         pack_bf16(hi.x, hi.y), pack_bf16(hi.z, hi.w));
-        }
-      }
-      *reinterpret_cast<uint4*>(&As[r][c8]) = v;
-    }
-    for (int i = tid; i < BN * BK / 8; i += GEMM_THREADS) {
-      const int r = i >> 2, c8 = (i & 3) * 8;
-      *reinterpret_cast<uint4*>(&Bs[r][c8]) = *reinterpret_cast<const uint4*>(
-          BT + (size_t)(n0 + r) * K + k0 + c8);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[2][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm * 32 + mi * 16 + g;
-        af[mi][0] = ld32(&As[r][kk + tg * 2]);
-        af[mi][1] = ld32(&As[r + 8][kk + tg * 2]);
-        af[mi][2] = ld32(&As[r][kk + tg * 2 + 8]);
-        af[mi][3] = ld32(&As[r + 8][kk + tg * 2 + 8]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int r = wn * 32 + ni * 8 + g;
-        bfr[ni][0] = ld32(&Bs[r][kk + tg * 2]);
-        bfr[ni][1] = ld32(&Bs[r][kk + tg * 2 + 8]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni]);
-    }
-    __syncthreads();
+// K-steps [kb, ke) of one tile: A box (64, BM) at (k, m0) of ma, B box
+// (64, BN) at (k, n0) of mb, into the ring's stages
+template <int STAGES>
+__device__ __forceinline__ void produce(const Ring& ring, int& s, uint32_t& ph,
+                                        const CUtensorMap* ma,
+                                        const CUtensorMap* mb, int m0, int n0,
+                                        int kb, int ke, uint32_t b_off,
+                                        uint32_t bytes) {
+  for (int ks = kb; ks < ke; ++ks) {
+    mbar_wait(ring.empty + 8 * s, ph ^ 1);
+    const uint32_t bar = ring.full + 8 * s, st = ring.stage(s);
+    mbar_expect_tx(bar, bytes);
+    tma_load_3d(st, ma, bar, ks * GK, m0, 0);
+    tma_load_3d(st + b_off, mb, bar, ks * GK, n0, 0);
+    if (++s == STAGES) { s = 0; ph ^= 1; }
   }
+}
 
-  // accumulator (mi, ni, h): row m0 + wm*32 + mi*16 + g + 8h,
-  // columns col, col + 1 with col = n0 + wn*32 + ni*8 + 2*tg
+template <int BN>
+__device__ __forceinline__ void wgmma_kmajor(float (&d)[BN / 2], uint64_t da,
+                                             uint64_t db) {
+  if constexpr (BN == 32)
+    wgmma_m64n32k16<0>(d, da, db, 1);
+  else if constexpr (BN == 64)
+    wgmma_m64n64k16<0>(d, da, db, 1);
+  else if constexpr (BN == 128)
+    wgmma_m64n128k16<0, 0>(d, da, db, 1);
+  else if constexpr (BN == 208)
+    wgmma_m64n208k16<0>(d, da, db, 1);
+  else
+    wgmma_m64n256k16<0>(d, da, db, 1);
+}
+
+// acc += A B over nk stages of the ring: this warpgroup's 64 rows of A at
+// a_off in each stage, the whole B tile at b_off; every stage is released
+// once read, the last one too (a persistent block reuses the ring)
+template <int BN, int STAGES>
+__device__ __forceinline__ void consume(float (&acc)[BN / 2], const Ring& ring,
+                                        int& s, uint32_t& ph, int nk,
+                                        uint32_t a_off, uint32_t b_off,
+                                        int lane) {
+  int prev = -1;
+  for (int it = 0; it < nk; ++it) {
+    mbar_wait(ring.full + 8 * s, ph);
+    const uint32_t st = ring.stage(s);
+    wgmma_fence();
+    fence_acc(acc);
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+    for (int k = 0; k < GK / 16; ++k)
+      wgmma_kmajor<BN>(acc, sw128_desc(st + a_off + 32 * k, 0, 1024),
+                       sw128_desc(st + b_off + 32 * k, 0, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();   // the stage before this one is read: release it
+    fence_acc(acc);
+    if (prev >= 0 && lane == 0) mbar_arrive(ring.empty + 8 * prev);
+    prev = s;
+    if (++s == STAGES) { s = 0; ph ^= 1; }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  if (prev >= 0 && lane == 0) mbar_arrive(ring.empty + 8 * prev);
+}
+
+// a warpgroup's 64 x BN accumulator tile at rows m_base.., columns n0..:
+// fragment (i, h) is row (warp % 4) * 16 + lane / 4 + 8 h, columns
+// 8 i + 2 (lane % 4) and the next (re, im of one bin in the analysis).
+// The analysis epilogue (momentum, projection onto the magnitudes, pinning,
+// the two bf16 carries) takes G column groups at a time and issues all
+// their loads (magnitude, previous projection, pinned value) before any
+// store: one memory round trip for G groups, not one per bin.
+template <int BN, int MODE>
+__device__ __forceinline__ void epilogue(const GriffinLimArgs& a,
+                                         const float (&acc)[BN / 2],
+                                         int m_base, int n0, float* frames,
+                                         int warp, int lane) {
+  const int M = a.B * a.n, F2 = 2 * a.F;
+  const int row0 = m_base + (warp & 3) * 16 + (lane >> 2);
+  if (MODE == SYNTH) {
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + wn * 32 + ni * 8 + 2 * tg;
+    for (int i = 0; i < BN / 8; ++i) {
+      const int col = n0 + 8 * i + 2 * (lane & 3);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 32 + mi * 16 + g + 8 * h;
-        if (row >= M) continue;
-        const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
-        if (MODE == SYNTH) {
-          *reinterpret_cast<float2*>(a.frames + (size_t)row * a.fft + col) =
-              make_float2(v0, v1);
-        } else {
-          const int bin = col >> 1;
-          if (bin >= a.F) continue;
-          // v0, v1 = re, im of the re-analysed frame
-          const float mag = a.S[(size_t)row * a.F + bin];
-          __nv_bfloat16* tp = a.tp + (size_t)row * 2 * a.F + 2 * bin;
-          const __nv_bfloat162 prev = *reinterpret_cast<__nv_bfloat162*>(tp);
-          const float ar = v0 + a.momentum * (v0 - __low2float(prev));
-          const float ai = v1 + a.momentum * (v1 - __high2float(prev));
-          const float scale = mag * rsqrtf(ar * ar + ai * ai + 1e-30f);
-          uint32_t cv = pack_bf16(ar * scale, ai * scale);
-          // already-played frame: keep its start value
-          if (a.n_pinned && row % a.n < a.n_pinned)
-            cv = *reinterpret_cast<const uint32_t*>(
-                a.pin + ((size_t)(row / a.n) * a.n_pinned + row % a.n) * 2 *
-                            a.F + 2 * bin);
-          *reinterpret_cast<uint32_t*>(a.c + (size_t)row * a.Kp + 2 * bin) =
-              cv;
-          *reinterpret_cast<uint32_t*>(tp) = pack_bf16(v0, v1);
-        }
+        const int row = row0 + 8 * h;
+        if (row < M)
+          *reinterpret_cast<float2*>(frames + (size_t)row * a.fft + col) =
+              make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+      }
+    }
+    return;
+  }
+  // 8 groups at once for the narrow tiles; 4 for the wide ones, whose
+  // accumulators already hold 64-104 registers
+  constexpr int G = BN <= 64 ? BN / 8 : 4;
+  int f_row[2];
+  size_t pin_row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    f_row[h] = row % a.n;
+    pin_row[h] = ((size_t)(row / a.n) * a.n_pinned + f_row[h]) * F2;
+  }
+#pragma unroll
+  for (int i0 = 0; i0 < BN / 8; i0 += G) {
+    float mag[G][2];
+    uint32_t prev[G][2], pinned[G][2];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int bin = (n0 + 8 * (i0 + g) + 2 * (lane & 3)) >> 1;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        const bool ok = i0 + g < BN / 8 && row < M && bin < a.F;
+        mag[g][h] = ok ? a.S[(size_t)row * a.F + bin] : 0.0f;
+        prev[g][h] = ok ? ldcg_pair(a.tp + (size_t)row * F2 + 2 * bin) : 0u;
+        pinned[g][h] = ok && f_row[h] < a.n_pinned
+                           ? ldcg_pair(a.pin + pin_row[h] + 2 * bin)
+                           : 0u;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int i = i0 + g;
+      const int bin = (n0 + 8 * i + 2 * (lane & 3)) >> 1;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (i >= BN / 8 || row >= M || bin >= a.F) continue;
+        // (v0, v1) = re, im of the re-analysed frame
+        const float v0 = acc[4 * i + 2 * h], v1 = acc[4 * i + 2 * h + 1];
+        const __nv_bfloat162 p = unpack_bf16(prev[g][h]);
+        const float ar = v0 + a.momentum * (v0 - __low2float(p));
+        const float ai = v1 + a.momentum * (v1 - __high2float(p));
+        const float scale = mag[g][h] * rsqrtf(ar * ar + ai * ai + 1e-30f);
+        // an already-played frame keeps its start value
+        const uint32_t cv = f_row[h] < a.n_pinned
+                                ? pinned[g][h]
+                                : pack_bf16(ar * scale, ai * scale);
+        *reinterpret_cast<uint32_t*>(a.c + (size_t)row * a.Kp + 2 * bin) =
+            cv;
+        *reinterpret_cast<uint32_t*>(a.tp + (size_t)row * F2 + 2 * bin) =
+            pack_bf16(v0, v1);
       }
     }
   }
 }
 
-__global__ void ola(const GriffinLimArgs a, float* dst) {
-  const int k = a.fft / a.hop, nb = a.n + k - 1;
-  const size_t total = (size_t)a.B * nb * a.hop;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int j = idx % a.hop;
-  const int r = (idx / a.hop) % nb;
-  const int b = idx / ((size_t)a.hop * nb);
-  float acc = 0.0f;
-  for (int c = 0; c < k; ++c) {
-    const int f = r - c;
-    if (f < 0 || f >= a.n) continue;
-    const float v = a.frames[((size_t)b * a.n + f) * a.fft + c * a.hop + j];
-    // unfolded: synthesis window in f32, rounded before the sum (no FMA)
-    acc += a.fold ? v : __fmul_rn(v, a.win[c * a.hop + j]);
+// ---------------------------------------------------------------------------
+// batch route: one launch per step
+// ---------------------------------------------------------------------------
+
+__global__ void init_kernel(const GriffinLimArgs a) {
+  init_elem(a, blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+__global__ void ola_kernel(const GriffinLimArgs a, int final) {
+  const int nb = a.n + a.fft / a.hop - 1;
+  const unsigned q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= (unsigned)(a.B * nb * a.hop / 4)) return;
+  const OlaPos o = ola_pos(a, q);
+  float4 v[KMAX];
+  ola_load(a, o, v);
+  ola_store(a, q, o, v, final != 0);
+}
+
+__global__ void spec_kernel(const GriffinLimArgs a) {
+  const unsigned idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < (unsigned)(a.B * a.n * a.F)) spec_elem(a, idx);
+}
+
+// grid (M tiles of 128 rows, N tiles); ma: A over (K, M), mb: B over (K, N)
+template <int BN, int MODE>
+__global__ void __launch_bounds__(BATCH_THREADS, 1)
+    gemm_batch(const __grid_constant__ CUtensorMap ma,
+               const __grid_constant__ CUtensorMap mb,
+               const GriffinLimArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  const Ring ring(smem_raw, BATCH_STAGES, stage_bytes(BATCH_BM, BN));
+  const int m0 = blockIdx.x * BATCH_BM, n0 = blockIdx.y * BN;
+  const int nk = ((MODE == SYNTH ? 2 * a.F : a.fft) + GK - 1) / GK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr uint32_t A_BYTES = BATCH_BM * GK * 2;
+  int s = 0;
+  uint32_t ph = 0;
+  if (warp == 8) {   // producer
+    if (lane == 0)
+      produce<BATCH_STAGES>(ring, s, ph, &ma, &mb, m0, n0, 0, nk, A_BYTES,
+                            stage_bytes(BATCH_BM, BN));
+    return;
   }
-  dst[idx] = acc * a.inorm[r * a.hop + j];
+  const int wg = warp >> 2;   // rows wg * 64 .. + 63 of the tile
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  consume<BN, BATCH_STAGES>(acc, ring, s, ph, nk, wg * 64 * GK * 2,
+                            A_BYTES, lane);
+  epilogue<BN, MODE>(a, acc, m0 + wg * 64, n0, a.frames, warp, lane);
+}
+
+// ---------------------------------------------------------------------------
+// window route: one persistent cooperative launch (or one launch a step)
+// ---------------------------------------------------------------------------
+
+struct WindowMaps {
+  CUtensorMap c, syn, a16, ana;
+};
+
+// Every block of the grid arrives, then waits until all have: a counter
+// that only grows (target = blocks x barriers so far); one thread a block
+// arrives with a release and polls with acquires (the pattern of CUTLASS's
+// grid barrier; relaxed polls with one fence after them measured slower).
+// The epilogues' generic stores are read after it by TMA (the async
+// proxy): every thread fences the proxies on both sides. Ten seconds
+// without the others means a block is not resident or the run is broken:
+// trap.
+__device__ void grid_sync(unsigned* count, unsigned& target) {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+  __syncthreads();
+  target += gridDim.x;
+  if (threadIdx.x == 0) {
+    asm volatile(
+        "fence.acq_rel.gpu;\n"
+        "red.relaxed.gpu.global.add.u32 [%0], 1;\n" ::"l"(count)
+        : "memory");
+    uint32_t spins = 0;
+    uint64_t t_first = 0;
+    while (true) {
+      unsigned v;
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(v)
+                   : "l"(count)
+                   : "memory");
+      if (v >= target) break;
+      if ((++spins & 1023) == 0) {
+        const uint64_t now = globaltimer();
+        if (t_first == 0) t_first = now;
+        else if (now - t_first > 10000000000ull) __trap();
+      }
+    }
+  }
+  __syncthreads();
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// steps [p_begin, p_end): 0 the start; 1 + 3 it + (0 synthesis, 1 overlap-
+// add, 2 analysis) for it < n_iters; 3 n_iters + 1 the last synthesis;
+// 3 n_iters + 2 the waveform and the returned spectrum. Warps 0 .. 4 NWG - 1
+// are the consumer warpgroups, the last warp the producer; all threads
+// share the element-wise steps. trace (blocks below TRACE_BLOCKS): the
+// globaltimer at the start and the end of each step p at [p][block], and
+// the block's SM at [steps][block][0].
+template <int BN, int NWG>
+__global__ void __launch_bounds__(win_threads<NWG>(), win_blocks<BN>())
+    gl_window(const __grid_constant__ WindowMaps maps, const GriffinLimArgs a,
+              int p_begin, int p_end) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr int BM = 64 * NWG, STAGES = win_stages<BN>();
+  constexpr uint32_t A_BYTES = BM * GK * 2, STAGE = stage_bytes(BM, BN);
+  const Ring ring(smem_raw, STAGES, STAGE, 4 * NWG);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool producer = warp == 4 * NWG;
+  const int wg = warp >> 2;
+  const int M = a.B * a.n, F2 = 2 * a.F;
+  const int m_tiles = (M + BM - 1) / BM;
+  const int syn_n = a.fft / BN, ana_n = (F2 + BN - 1) / BN;
+  const int nk_syn = (F2 + GK - 1) / GK, nk_ana = a.fft / GK;
+  const int last = 3 * a.n_iters + 2;
+  const unsigned tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned nthreads = gridDim.x * blockDim.x;
+  const unsigned quads = a.B * (a.n + a.fft / a.hop - 1) * a.hop / 4;
+  unsigned long long* trace =
+      a.trace != nullptr && blockIdx.x < TRACE_BLOCKS && threadIdx.x == 0
+          ? a.trace + 2 * (size_t)blockIdx.x : nullptr;
+  if (trace != nullptr) {
+    unsigned smid;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+    trace[(size_t)2 * TRACE_BLOCKS * (last + 1)] = smid;
+  }
+  int s = 0;
+  uint32_t ph = 0;
+  unsigned target = 0;
+  for (int p = p_begin; p < p_end; ++p) {
+    if (p > p_begin) grid_sync(a.sync, target);
+    if (trace != nullptr)
+      trace[(size_t)2 * TRACE_BLOCKS * p] = globaltimer();
+    if (p == 0) {
+      const unsigned n_init = a.init == INIT_GIVEN ? M * a.F : a.B * a.F;
+      for (unsigned i = tid; i < n_init; i += nthreads) init_elem(a, i);
+    } else if (p == last) {
+      ola_quads<2>(a, tid, nthreads, quads, true);
+      if (a.spec_re != nullptr)
+        for (unsigned i = tid; i < (unsigned)(M * a.F); i += nthreads)
+          spec_elem(a, i);
+    } else if ((p - 1) % 3 == 1) {
+      ola_quads<2>(a, tid, nthreads, quads, false);
+    } else {   // a GEMM: synthesis or analysis
+      const bool syn = (p - 1) % 3 == 0;
+      const int n_tiles = syn ? syn_n : ana_n, nk = syn ? nk_syn : nk_ana;
+      for (int t = blockIdx.x; t < m_tiles * n_tiles; t += gridDim.x) {
+        const int m0 = (t % m_tiles) * BM, n0 = (t / m_tiles) * BN;
+        if (producer) {
+          if (lane == 0)
+            produce<STAGES>(ring, s, ph, syn ? &maps.c : &maps.a16,
+                            syn ? &maps.syn : &maps.ana, m0, n0, 0, nk,
+                            A_BYTES, STAGE);
+        } else {
+          float acc[BN / 2];
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+          consume<BN, STAGES>(acc, ring, s, ph, nk, wg * 64 * GK * 2,
+                              A_BYTES, lane);
+          if (syn)
+            epilogue<BN, SYNTH>(a, acc, m0 + wg * 64, n0, a.frames, warp,
+                                lane);
+          else
+            epilogue<BN, ANALYSIS>(a, acc, m0 + wg * 64, n0, nullptr, warp,
+                                   lane);
+        }
+      }
+    }
+    // the whole block finishes the step before any of it enters the grid
+    // barrier: without this, the one launch measured slower on the H100
+    // than the same steps launched one by one from a CUDA graph
+    __syncthreads();
+    if (trace != nullptr)
+      trace[(size_t)2 * TRACE_BLOCKS * p + 1] = globaltimer();
+  }
+  if (a.one_launch) {
+    // the last block out leaves the counters at zero for the next call
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      if (atomicAdd(a.sync + 1, 1u) == gridDim.x - 1) {
+        atomicExch(a.sync, 0u);
+        atomicExch(a.sync + 1, 0u);
+      }
+    }
+  }
+}
+
+int run_batch(const GriffinLimArgs& a, const WindowMaps& maps,
+              cudaStream_t stream) {
+  constexpr size_t smem_syn =
+      ring_smem(BATCH_STAGES, BATCH_BM, BATCH_BN_SYN);
+  constexpr size_t smem_ana =
+      ring_smem(BATCH_STAGES, BATCH_BM, BATCH_BN_ANA);
+  static cudaError_t attr_syn =
+      allow_smem(gemm_batch<BATCH_BN_SYN, SYNTH>, smem_syn);
+  static cudaError_t attr_ana =
+      allow_smem(gemm_batch<BATCH_BN_ANA, ANALYSIS>, smem_ana);
+  if (attr_syn != cudaSuccess) return (int)attr_syn;
+  if (attr_ana != cudaSuccess) return (int)attr_ana;
+  const long M = (long)a.B * a.n, nb = a.n + a.fft / a.hop - 1;
+  const dim3 syn_grid(cdiv(M, BATCH_BM), a.fft / BATCH_BN_SYN);
+  const dim3 ana_grid(cdiv(M, BATCH_BM), cdiv(2 * a.F, BATCH_BN_ANA));
+  const unsigned ola_blocks = cdiv((long)a.B * nb * a.hop / 4, 256);
+  const unsigned init_blocks =
+      cdiv(a.init == INIT_GIVEN ? M * a.F : (long)a.B * a.F, 256);
+
+  init_kernel<<<init_blocks, 256, 0, stream>>>(a);
+  for (int it = 0; it <= a.n_iters; ++it) {   // the last: the waveform
+    gemm_batch<BATCH_BN_SYN, SYNTH>
+        <<<syn_grid, BATCH_THREADS, smem_syn, stream>>>(maps.c, maps.syn, a);
+    ola_kernel<<<ola_blocks, 256, 0, stream>>>(a, it == a.n_iters);
+    if (it == a.n_iters) break;
+    gemm_batch<BATCH_BN_ANA, ANALYSIS>
+        <<<ana_grid, BATCH_THREADS, smem_ana, stream>>>(maps.a16, maps.ana,
+                                                        a);
+  }
+  if (a.spec_re != nullptr)
+    spec_kernel<<<cdiv(M * a.F, 256), 256, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int BN, int NWG>
+int run_window(const GriffinLimArgs& a, const WindowMaps& maps,
+               cudaStream_t stream, int device) {
+  constexpr int BM = 64 * NWG, THREADS = win_threads<NWG>();
+  constexpr size_t smem = ring_smem(win_stages<BN>(), BM, BN);
+  static cudaError_t attr = allow_smem(gl_window<BN, NWG>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, gl_window<BN, NWG>, THREADS, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int sms = 0;
+  cudaError_t e =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  const long M = (long)a.B * a.n, m_tiles = cdiv(M, BM);
+  const long tiles = std::max(m_tiles * (a.fft / BN),
+                              m_tiles * (long)cdiv(2 * a.F, BN));
+  const int grid = (int)std::max(1L, std::min((long)per_sm * sms, tiles));
+  const int phases = 3 * a.n_iters + 3;
+  if (a.one_launch) {
+    int pb = 0, pe = phases;
+    void* params[] = {(void*)&maps, (void*)&a, (void*)&pb, (void*)&pe};
+    e = cudaLaunchCooperativeKernel((const void*)gl_window<BN, NWG>,
+                                    dim3(grid), dim3(THREADS), params, smem,
+                                    stream);
+    if (e != cudaSuccess) return (int)e;
+  } else {
+    for (int p = 0; p < phases; ++p)
+      gl_window<BN, NWG><<<grid, THREADS, smem, stream>>>(maps, a, p, p + 1);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// One whole retrieval on the caller's stream.
 extern "C" int dv3_griffin_lim(const GriffinLimArgs* args, void* stream_ptr,
                                int device) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const GriffinLimArgs a = *args;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int M = a.B * a.n;
-  const int nb = a.n + a.fft / a.hop - 1;
-  const dim3 synth_grid((M + BM - 1) / BM, a.fft / BN);
-  const dim3 ana_grid((M + BM - 1) / BM, a.Np / BN);
-  const size_t ola_total = (size_t)a.B * nb * a.hop;
-  const int ola_blocks = (int)((ola_total + 255) / 256);
-  const int bin_blocks = (int)(((size_t)M * a.F + 255) / 256);
-
-  if (a.init == INIT_GIVEN)
-    given_init<<<bin_blocks, 256, 0, stream>>>(a);
-  else
-    spsi_init<<<(a.B * a.F + 255) / 256, 256, 0, stream>>>(a);
-  for (int it = 0; it < a.n_iters; ++it) {
-    gemm<SYNTH><<<synth_grid, GEMM_THREADS, 0, stream>>>(a);
-    ola<<<ola_blocks, 256, 0, stream>>>(a, a.y);
-    if (a.fold)
-      gemm<ANALYSIS, true><<<ana_grid, GEMM_THREADS, 0, stream>>>(a);
-    else
-      gemm<ANALYSIS, false><<<ana_grid, GEMM_THREADS, 0, stream>>>(a);
+  const bool batch = a.route == ROUTE_BATCH;
+  const bool tiles_ok = (a.bm == 64 && (a.bn == 32 || a.bn == 64)) ||
+                        (a.bm == 128 && a.bn == 128);
+  if (!batch && !tiles_ok) return (int)cudaErrorInvalidValue;
+  const int bm = batch ? BATCH_BM : a.bm;
+  const long M = (long)a.B * a.n, F2 = 2 * a.F;
+  WindowMaps maps;
+  int rc = encode_bf16_rows(&maps.c, a.c, F2, M, 1, (long)a.Kp * 2, GK, bm);
+  if (rc == 0)
+    rc = encode_bf16_rows(&maps.syn, a.synT, F2, a.fft, 1, (long)a.Kp * 2, GK,
+                          batch ? BATCH_BN_SYN : a.bn);
+  if (rc == 0)
+    rc = encode_bf16_rows(&maps.a16, a.a16, a.fft, M, 1, (long)a.fft * 2, GK,
+                          bm);
+  if (rc == 0)
+    rc = encode_bf16_rows(&maps.ana, a.anaT, a.fft, F2, 1, (long)a.fft * 2,
+                          GK, batch ? BATCH_BN_ANA : a.bn);
+  if (rc != 0) return rc;
+  if (batch) return run_batch(a, maps, stream);
+  switch (a.bn) {
+    case 32: return run_window<32, 1>(a, maps, stream, device);
+    case 64: return run_window<64, 1>(a, maps, stream, device);
+    default: return run_window<128, 2>(a, maps, stream, device);
   }
-  gemm<SYNTH><<<synth_grid, GEMM_THREADS, 0, stream>>>(a);
-  ola<<<ola_blocks, 256, 0, stream>>>(a, a.out);
-  if (a.spec_re != nullptr) spec_out<<<bin_blocks, 256, 0, stream>>>(a);
-  return (int)cudaGetLastError();
 }
 
 extern "C" const char* dv3_error_string(int e) {
-  return cudaGetErrorString((cudaError_t)e);
+  const char* s = encode_error_string(e);
+  return s != nullptr ? s : cudaGetErrorString((cudaError_t)e);
 }

@@ -135,7 +135,10 @@ def spsi_phase(magnitude, fft_size, hop):
     The per-frame increments are wrapped mod 2 pi before the frame cumsum,
     as the Pallas kernel does (dsp/gl_pallas.py) and unlike the JAX XLA
     loop's `spsi_phase`: cos/sin are unchanged, and the running phase stays
-    small enough to keep its f32 precision. magnitude (..., n, F) f32."""
+    small enough to keep its f32 precision. The cumsum accumulates in f64
+    and rounds each frame's phase to f32, on every device: what torch's CPU
+    cumsum of f32 does, and what kernel B2 does (csrc/griffin_lim.cu).
+    magnitude (..., n, F) f32."""
     m = magnitude
     left = torch.cat([m[..., :1], m[..., :-1]], dim=-1)
     right = torch.cat([m[..., 1:], m[..., -1:]], dim=-1)
@@ -148,8 +151,12 @@ def spsi_phase(magnitude, fft_size, hop):
     k = torch.arange(m.shape[-1], dtype=m.dtype, device=m.device)
     omega = (2.0 * np.pi * hop / fft_size) * (k + p)          # rad / frame
     two_pi = float(np.float32(2.0 * np.pi))
-    omega = omega - two_pi * torch.floor(omega / two_pi)
-    return torch.cumsum(omega, dim=-2)
+    # divided by a tensor: by a Python number the card multiplies by the
+    # reciprocal, and the floor of a quotient near an integer would differ
+    # from the CPU's (and the kernel's) by one turn
+    omega = omega - two_pi * torch.floor(
+        omega / torch.full_like(omega[..., :1, :1], two_pi))
+    return torch.cumsum(omega.double(), dim=-2).to(omega.dtype)
 
 
 # ---------------------------------------------------------------------------

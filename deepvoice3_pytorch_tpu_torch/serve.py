@@ -20,6 +20,10 @@ Endpoints (`make_handler`):
 With slots, admission control sheds a request once max_backlog requests
 wait for a slot: HTTP 503 with Retry-After, counted as rejected.
 
+`TTSServer` (a ThreadingHTTPServer that notes when it accepted each
+connection) and the handler record, per /tts request, the wall times of its
+hops to the first audio; `TTSEngine.hops()` returns the last 512.
+
 The engine runs where the parameters live. The command line, which loads a
 checkpoint, is not ported yet.
 """
@@ -30,13 +34,21 @@ import queue
 import struct
 import threading
 import time
-from http.server import BaseHTTPRequestHandler
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
 from . import streaming
-from .serving import BacklogFull, ContinuousBatcher
+from .serving import BacklogFull, ContinuousBatcher, DeliveryQueue
+
+# a request's hops to its first audio, in order (wall times, time.time()):
+# the server accepted the connection, the handler thread started,
+# engine.stream was entered, the request was queued (the batcher's submit
+# returned), it was taken into a slot (batcher only), its first audio was
+# put on its queue, the handler got it, the handler wrote it to the socket
+HOPS = ("accept", "handler", "stream", "submit", "admit", "first_put",
+        "first_get", "written")
 
 
 def wav_stream_header(sample_rate, bits=16, channels=1):
@@ -100,6 +112,7 @@ class TTSEngine:
                         "requests_rejected": 0, "requests_disconnected": 0,
                         "active_streams": 0, "audio_seconds_total": 0.0}
         self._ttfa_ms = collections.deque(maxlen=512)
+        self._hops = collections.deque(maxlen=512)
 
     def shutdown(self):
         """Stop the worker: the producer once the queued requests are done,
@@ -141,17 +154,37 @@ class TTSEngine:
         s["uptime_s"] = round(time.time() - self._t_start, 1)
         return s
 
-    def stream(self, text, speaker_id=None):
+    def record_hops(self, trace):
+        """Keep one request's trace: HOPS -> wall time (None where a hop
+        did not happen) and its "text"."""
+        q = trace.pop("queue", None)
+        if q is not None:
+            trace.update(admit=q.t_admit, first_put=q.t_first_put)
+        rec = {h: trace.get(h) for h in HOPS}
+        rec["text"] = trace.get("text")
+        with self._stats_lock:
+            self._hops.append(rec)
+
+    def hops(self):
+        """The last 512 requests' traces, oldest first."""
+        with self._stats_lock:
+            return list(self._hops)
+
+    def stream(self, text, speaker_id=None, trace=None):
         """_stream_inner plus serving metrics: request, failure and
         rejection counts, streams in flight, time to first audio, audio
-        seconds produced."""
+        seconds produced. trace: a dict that receives the wall times of the
+        hops "stream" and "submit", and the request's queue."""
+        if trace is not None:
+            trace["stream"] = time.time()
         t0 = time.perf_counter()
         with self._stats_lock:
             self._counts["requests_total"] += 1
             self._counts["active_streams"] += 1
         n_samples, first = 0, True
         try:
-            for audio in self._stream_inner(text, speaker_id=speaker_id):
+            for audio in self._stream_inner(text, speaker_id=speaker_id,
+                                            trace=trace):
                 if first:
                     first = False
                     with self._stats_lock:
@@ -204,7 +237,7 @@ class TTSEngine:
             except BaseException as e:           # surface in the handler
                 q.put(("error", e))
 
-    def _stream_inner(self, text, speaker_id=None):
+    def _stream_inner(self, text, speaker_id=None, trace=None):
         """Yields float32 sample chunks of one utterance, trimmed to the
         decoded length, as the producer thread or the batcher makes them."""
         if self.batcher is not None:
@@ -212,8 +245,10 @@ class TTSEngine:
                 text, None if speaker_id is None else int(speaker_id))
         else:
             spk = None if speaker_id is None else [int(speaker_id)]
-            q = queue.Queue()
+            q = DeliveryQueue()
             self._jobs.put((text, spk, q))
+        if trace is not None:
+            trace.update(submit=time.time(), queue=q)
         while True:
             try:
                 kind, payload = q.get(timeout=600)
@@ -224,6 +259,29 @@ class TTSEngine:
             if kind == "error":
                 raise payload
             yield payload
+
+
+class TTSServer(ThreadingHTTPServer):
+    """A ThreadingHTTPServer (a thread per connection) that notes the wall
+    time at which it accepted each connection, for the handler's trace, and
+    keeps a listen backlog for many clients that connect at once (the
+    default 5 drops SYNs, and their retransmits would time TCP, not TTS).
+    A connection's accept time lives as long as the connection: its first
+    request takes it, and closing the connection drops it."""
+
+    request_queue_size = 64
+
+    def __init__(self, *args, **kwargs):
+        self.accept_times = {}          # connection socket -> accept time
+        super().__init__(*args, **kwargs)
+
+    def process_request(self, request, client_address):
+        self.accept_times[request] = time.time()
+        super().process_request(request, client_address)
+
+    def shutdown_request(self, request):
+        self.accept_times.pop(request, None)
+        super().shutdown_request(request)
 
 
 def make_handler(engine):
@@ -242,6 +300,9 @@ def make_handler(engine):
             self.wfile.write(body)
 
         def do_GET(self):
+            # the first request of a connection gets its accept time
+            accepted = getattr(self.server, "accept_times", {}).pop(
+                self.request, None)
             url = urlparse(self.path)
             if url.path == "/healthz":
                 self.send_response(200)
@@ -256,15 +317,18 @@ def make_handler(engine):
             if url.path != "/tts":
                 self._json(404, {"error": "unknown path %s" % url.path})
                 return
+            trace = {"handler": time.time(), "accept": accepted}
             q = parse_qs(url.query)
             text = (q.get("text") or [""])[0].strip()
             if not text:
                 self._json(400, {"error": "missing ?text="})
                 return
+            trace["text"] = text
             speaker = (q.get("speaker_id") or [None])[0]
             try:
-                gen = engine.stream(text, speaker_id=speaker)
+                gen = engine.stream(text, speaker_id=speaker, trace=trace)
                 first = next(gen, None)
+                trace["first_get"] = time.time()
             except BacklogFull as e:    # admission control: shed
                 body = json.dumps({"error": str(e)}).encode()
                 self.send_response(503)
@@ -290,6 +354,8 @@ def make_handler(engine):
             chunk(wav_stream_header(engine.ap.sample_rate))
             if first is not None and len(first):
                 chunk(pcm16(first))
+            trace["written"] = time.time()
+            engine.record_hops(trace)
             for audio in gen:
                 chunk(pcm16(audio))
             self.wfile.write(b"0\r\n\r\n")

@@ -148,6 +148,22 @@ class _Slot:
         self.n_pend = 0           # lookahead linear frames held back
 
 
+class DeliveryQueue(queue.Queue):
+    """A request's delivery queue. It keeps the wall times (time.time(), so
+    that another process's clock on the host compares) of two hops of the
+    request: t_admit (taken into a slot), t_first_put (its first audio
+    put)."""
+
+    def __init__(self):
+        super().__init__()
+        self.t_admit = self.t_first_put = None
+
+    def put(self, item, block=True, timeout=None):
+        if self.t_first_put is None and item[0] == "audio":
+            self.t_first_put = time.time()
+        super().put(item, block, timeout)
+
+
 class BacklogFull(RuntimeError):
     """Admission control: the waiting queue is at max_backlog. Callers
     shed the request (serve.py answers HTTP 503 with Retry-After) rather
@@ -459,7 +475,7 @@ class ContinuousBatcher:
             # checked on the host: on the card it would index out of bounds
             raise ValueError("speaker_id %d out of range for %d speakers"
                              % (speaker_id, self.cfg.n_speakers))
-        out_q = queue.Queue()
+        out_q = DeliveryQueue()
         # check and put under one lock, so concurrent submits cannot pass
         # max_backlog together (not the engine lock, which step() holds for
         # a whole chunk)
@@ -502,6 +518,8 @@ class ContinuousBatcher:
         self._tk = tk_new
 
     def _admit(self, slot, seq, speaker_id, out_q):
+        if isinstance(out_q, DeliveryQueue):
+            out_q.t_admit = time.time()
         tk_req = self._bucket(len(seq))
         if tk_req > self._tk:
             self._grow_tk(tk_req)

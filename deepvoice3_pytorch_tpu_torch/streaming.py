@@ -29,7 +29,6 @@ import torch
 
 from .builder import embed_speakers, model_postnet
 from .dsp import gl_cuda
-from .dsp import stft as dsp
 from .ops import core
 from .ops import fused_decode as fd
 from .synthesis import _param_device, _prepare_batch, speaker_id_tensor
@@ -120,28 +119,17 @@ def launch_chunk(dec, carry, outputs, t0, steps):
 
 def gl_window(ap, spec, prev_spec, iters):
     """One vocoder window, shared by StreamingVocoder and the continuous-
-    batching emission (serving.py): denormalize + power, the anchored SPSI
-    start, then Griffin-Lim (kernel B2 on the card) with the context frames
-    pinned. spec: (B, n, F) normalized linear frames whose first n_ctx
-    frames are context; prev_spec: their retrieved (re, im), each (B,
+    batching emission (serving.py): denormalize + power, then one Griffin-
+    Lim call (kernel B2 on the card) from the anchored SPSI start
+    (`gl_cuda.anchored_start`, computed inside the kernel) with the context
+    frames pinned. spec: (B, n, F) normalized linear frames whose first
+    n_ctx frames are context; prev_spec: their retrieved (re, im), each (B,
     n_ctx, F), or None. Returns (waveform, retrieved (re, im))."""
-    fft, hop = ap.fft_size, ap.hop_size
     S = ap._denorm_pow(spec.float())
-    phi = dsp.spsi_phase(S, fft, hop)
-    n_ctx = 0
-    if prev_spec is not None:
-        pre, pim = prev_spec
-        n_ctx = pre.shape[1]
-        delta = torch.atan2(pim[:, -1], pre[:, -1]) - phi[:, n_ctx - 1]
-        phi = phi + delta[:, None, :]
-        i_re = torch.cat([pre, (S * torch.cos(phi))[:, n_ctx:]], dim=1)
-        i_im = torch.cat([pim, (S * torch.sin(phi))[:, n_ctx:]], dim=1)
-    else:
-        i_re, i_im = S * torch.cos(phi), S * torch.sin(phi)
     return gl_cuda.griffin_lim(
-        S, fft, hop, ap.window_np, n_iters=iters, momentum=ap.gl_momentum,
-        mats=ap.mats(S.device), init_spec=(i_re, i_im), n_pinned=n_ctx,
-        return_spec=True)
+        S, ap.fft_size, ap.hop_size, ap.window_np, n_iters=iters,
+        momentum=ap.gl_momentum, mats=ap.mats(S.device),
+        phase_init="anchored", context_spec=prev_spec, return_spec=True)
 
 
 class StreamingVocoder:

@@ -408,22 +408,35 @@ def _drain_queue(q):
         audio.append(payload)
 
 
-@pytest.mark.parametrize("fft,hop,B,n,n_iters,phase_init", [
-    (1024, 256, 2, 37, 0, "spsi"), (1024, 256, 2, 37, 1, "spsi"),
-    (1024, 256, 3, 21, 1, "zero"), (128, 32, 2, 40, 1, "spsi")])
+@pytest.mark.parametrize("fft,hop,B,n,n_iters,phase_init,route", [
+    (1024, 256, 2, 37, 0, "spsi", "window"),
+    (1024, 256, 2, 37, 1, "spsi", "window"),
+    (1024, 256, 3, 21, 1, "zero", "window"),
+    (128, 32, 2, 40, 1, "spsi", "window"),
+    (1024, 256, 1, 40, 1, "spsi", "window"),
+    (1024, 256, 1, 57, 1, "spsi", "window"),
+    (1024, 256, 1, 152, 1, "spsi", "window"),
+    (1024, 256, 8, 152, 1, "spsi", "window"),    # 128 x 128 window tiles
+    (1024, 256, 12, 379, 1, "spsi", "batch"),    # B*n off the 128-row tile
+    (1024, 256, 12, 379, 0, "zero", "batch")])
 def test_griffin_lim_kernel_matches_plain(dev, fft, hop, B, n, n_iters,
-                                          phase_init):
+                                          phase_init, route):
     """Where little amplifies bf16 rounding flips (<= 1 iteration) the
     kernel and the plain version agree to 3e-3 of the peak (one iteration
     measured 1.1e-3 on the card; the CPU tests see 7e-4 against the Pallas
-    kernel); B*n is not a multiple of the 64-row GEMM tile."""
+    kernel); B*n is not a multiple of the GEMM tiles; each shape takes the
+    route its plan names, and two runs are bit-equal."""
     g = torch.Generator().manual_seed(0)
     S = (torch.rand(B, n, fft // 2 + 1, generator=g) ** 2).to(dev)
     win = dsp.lws_hann_window(fft, hop)
-    gl_cuda.KERNEL.launches = 0
+    gl_cuda.KERNEL.reset_counts()
     got = gl_cuda.griffin_lim(S, fft, hop, win, n_iters=n_iters,
                               phase_init=phase_init)
     assert gl_cuda.KERNEL.launches == 1
+    assert gl_cuda.KERNEL.by_route == {route: 1}
+    again = gl_cuda.griffin_lim(S, fft, hop, win, n_iters=n_iters,
+                                phase_init=phase_init)
+    assert torch.equal(got, again)
     want = gl_cuda.griffin_lim_plain(S, fft, hop, win, n_iters=n_iters,
                                      phase_init=phase_init)[:, :n * hop]
     rel = float((got - want).abs().max() / want.abs().max())
@@ -431,7 +444,8 @@ def test_griffin_lim_kernel_matches_plain(dev, fft, hop, B, n, n_iters,
 
 
 @pytest.mark.parametrize("fft,hop,B,n,n_iters", [
-    (1024, 256, 2, 37, 0), (1024, 256, 2, 37, 1), (128, 32, 3, 21, 1)])
+    (1024, 256, 2, 37, 0), (1024, 256, 2, 37, 1), (128, 32, 3, 21, 1),
+    (1024, 256, 12, 379, 1)])                    # the batch route
 def test_griffin_lim_unfolded_kernel_matches_plain(dev, fft, hop, B, n,
                                                    n_iters):
     """The probe kernel P (windows applied in f32 outside the bf16 DFT
@@ -443,6 +457,8 @@ def test_griffin_lim_unfolded_kernel_matches_plain(dev, fft, hop, B, n,
     got = gl_cuda.griffin_lim(S, fft, hop, win, n_iters=n_iters,
                               fold_windows=False)
     assert gl_cuda.KERNEL.by_entry == {"unfolded": 1}
+    assert gl_cuda.KERNEL.by_route == {
+        gl_cuda.gl_plan(B, n, fft, hop).route: 1}
     want = gl_cuda.griffin_lim_plain(S, fft, hop, win, n_iters=n_iters,
                                      fold_windows=False)[:, :n * hop]
     rel = float((got - want).abs().max() / want.abs().max())
@@ -455,6 +471,8 @@ def test_griffin_lim_unfolded_kernel_matches_plain(dev, fft, hop, B, n,
     (1, 152, 16, 2, True, True),    # B = 1 at a stream window's length,
                                     # pinned and free rows of zeros
     (3, 21, 5, 1, False, False),    # unfolded; B*n off the 64-row tile
+    (1, 152, 152, 2, True, False),  # a window with every frame pinned
+    (12, 379, 16, 1, True, False),  # the batch route
 ])
 def test_griffin_lim_stream_modes_match_plain(dev, B, n, n_pinned, n_iters,
                                               fold, zero_rows):
@@ -462,7 +480,7 @@ def test_griffin_lim_stream_modes_match_plain(dev, B, n, n_pinned, n_iters,
     peak as above; the returned bf16 spectrum 2^-8 (bf16's precision) in
     relative L2 norm; pinned frames bit-equal to the kernel's own start
     (its spectrum after 0 iterations); a start of zeros (the 1e-30 guard)
-    gives zeros, not NaN."""
+    gives zeros, not NaN; two runs bit-equal."""
     fft, hop = 1024, 256
     g = torch.Generator().manual_seed(2)
     S = (torch.rand(B, n, fft // 2 + 1, generator=g) ** 2).to(dev)
@@ -495,6 +513,83 @@ def test_griffin_lim_stream_modes_match_plain(dev, B, n, n_pinned, n_iters,
     if zero_rows:
         for got in spec:
             assert torch.equal(got[:, 3], torch.zeros_like(got[:, 3]))
+    wav2, spec2 = gl_cuda.griffin_lim(S, fft, hop, win, n_iters=n_iters,
+                                      **kw)
+    assert torch.equal(wav, wav2) and all(
+        torch.equal(a, b) for a, b in zip(spec, spec2))
+
+
+@pytest.mark.parametrize("B,n,n_ctx,n_iters", [
+    (1, 152, 16, 2), (1, 40, 0, 2), (3, 57, 8, 1), (12, 379, 16, 1)])
+def test_griffin_lim_anchored_start_matches_plain(dev, B, n, n_ctx,
+                                                  n_iters):
+    """The anchored start (a streaming window's, computed in the kernel)
+    against its plain version: on the card bit-equal (the kernel rounds
+    each operation as torch does there, the SPSI cumsum in f64 included);
+    against the plain version on the CPU, 2^-8 in relative L2 norm and at
+    most 1 in 1000 of the start's bf16 values different (only an ulp of
+    the two devices' cos, sin, atan2 or rsqrt can move a bf16 rounding).
+    The iterations from that start against the plain version's at the bars
+    of the stream modes above (waveform 3e-3 of the peak, returned spectrum
+    2^-8); the context frames bit-equal to the start. The context is a
+    slice of a larger spectrum, as the vocoders pass it."""
+    fft, hop = 1024, 256
+    g = torch.Generator().manual_seed(3)
+    S = (torch.rand(B, n, fft // 2 + 1, generator=g) ** 2).to(dev)
+    ctx = None
+    if n_ctx:
+        full = [torch.randn(B, n + 4, fft // 2 + 1, generator=g).to(dev)
+                for _ in range(2)]
+        ctx = tuple(a[:, 2:2 + n_ctx] for a in full)
+    win = dsp.lws_hann_window(fft, hop)
+    kw = dict(phase_init="anchored", context_spec=ctx, return_spec=True)
+    gl_cuda.KERNEL.reset_counts()
+    wav, spec = gl_cuda.griffin_lim(S, fft, hop, win, n_iters=n_iters, **kw)
+    _, start = gl_cuda.griffin_lim(S, fft, hop, win, n_iters=0, **kw)
+    assert gl_cuda.KERNEL.by_entry == {"pinned" if n_ctx else "init": 2}
+    _, want_start = gl_cuda.griffin_lim_plain(S, fft, hop, win, n_iters=0,
+                                              **kw)
+    for a, b in zip(start, want_start):
+        assert torch.equal(a, b)
+    _, cpu_start = gl_cuda.griffin_lim_plain(
+        S.cpu(), fft, hop, win, n_iters=0, **dict(
+            kw, context_spec=None if ctx is None
+            else tuple(a.cpu() for a in ctx)))
+    c_got, c_cpu = torch.complex(*start).cpu(), torch.complex(*cpu_start)
+    assert float((c_got - c_cpu).abs().norm() / c_cpu.abs().norm()) \
+        <= 2.0 ** -8
+    differ = sum(float((a.cpu() != b).double().mean())
+                 for a, b in zip(start, cpu_start)) / 2
+    assert differ <= 1e-3, differ
+    want, want_spec = gl_cuda.griffin_lim_plain(
+        S, fft, hop, win, n_iters=n_iters, **kw)
+    want = want[:, :n * hop]
+    rel = float((wav - want).abs().max() / want.abs().max())
+    assert rel <= 3e-3, rel
+    c_got, c_want = torch.complex(*spec), torch.complex(*want_spec)
+    assert float((c_got - c_want).abs().norm() / c_want.abs().norm()) \
+        <= 2.0 ** -8
+    for got, st in zip(spec, start):
+        assert torch.equal(got[:, :n_ctx], st[:, :n_ctx])
+
+
+@pytest.mark.parametrize("B,n", [(1, 40), (1, 152), (8, 152)])
+def test_griffin_lim_window_route_one_launch_equals_steps(dev, B, n):
+    """The window route's one cooperative launch and its steps launched one
+    by one run the same tiles and sums: bit-equal."""
+    fft, hop = 1024, 256
+    g = torch.Generator().manual_seed(4)
+    S = (torch.rand(B, n, fft // 2 + 1, generator=g) ** 2).to(dev)
+    win = dsp.lws_hann_window(fft, hop)
+    plan = gl_cuda.gl_plan(B, n, fft, hop)
+    assert plan.route == "window" and plan.one_launch
+    mats = gl_cuda.gl_mats(fft, win, dev)
+    one = gl_cuda._griffin_lim_cuda(S, fft, hop, win, mats=mats, n_iters=3,
+                                    plan=plan)
+    steps = gl_cuda._griffin_lim_cuda(S, fft, hop, win, mats=mats,
+                                      n_iters=3,
+                                      plan=plan._replace(one_launch=False))
+    assert torch.equal(one, steps)
 
 
 def test_tiny_stream_gpu_matches_cpu(dev):

@@ -8,8 +8,10 @@ Retry-After, counted as rejected and not as failed. Counterparts of the
 HTTP tests of tests/test_serving.py."""
 
 import json
+import socket
 import struct
 import threading
+import time
 import urllib.error
 import urllib.request
 from http.server import ThreadingHTTPServer
@@ -40,10 +42,10 @@ def tiny():
 
 
 class _Server:
-    def __init__(self, engine):
+    def __init__(self, engine, server_class=ThreadingHTTPServer):
         self.engine = engine
-        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0),
-                                         serve.make_handler(engine))
+        self.httpd = server_class(("127.0.0.1", 0),
+                                  serve.make_handler(engine))
         threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
         self.base = "http://127.0.0.1:%d" % self.httpd.server_address[1]
 
@@ -118,3 +120,40 @@ def test_slots_backlog_full_is_503_and_rejected(tiny):
     finally:
         srv.close()
     assert np.isfinite(s["uptime_s"])
+
+
+def test_server_accept_times_end_with_their_connections(tiny):
+    """serve.TTSServer keeps a connection's accept time only while the
+    connection lives: a /tts request takes it into its hop trace, and
+    connections that never reach a GET (a POST answered 501, a client that
+    sends nothing) leave nothing behind once they close."""
+    cfg, params, ap = tiny
+    engine = serve.TTSEngine(params, cfg, ap, en, max_decoder_steps=MAX,
+                             slots=1, text_pad=40)
+    srv = _Server(engine, serve.TTSServer)
+    try:
+        body = srv.get("/tts?text=" + TEXTS[0].replace(" ", "%20"))
+        assert body[:4] == b"RIFF"
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(urllib.request.Request(
+                srv.base + "/tts", data=b"x", method="POST"), timeout=60)
+        assert e.value.code == 501
+        port = srv.httpd.server_address[1]
+        socket.create_connection(("127.0.0.1", port), timeout=60).close()
+        deadline = time.time() + 30
+        while srv.httpd.accept_times and time.time() < deadline:
+            time.sleep(0.01)
+        assert srv.httpd.accept_times == {}
+        hops = engine.hops()
+        assert len(hops) == 1 and hops[0]["text"] == TEXTS[0]
+        h = hops[0]
+        assert None not in h.values()
+        # the handler thread's hops in order, and the batcher's: a slot may
+        # take the request before its submit call has returned
+        for chain in (("accept", "handler", "stream", "submit", "first_get",
+                       "written"), ("stream", "admit", "first_put",
+                                    "first_get")):
+            times = [h[k] for k in chain]
+            assert times == sorted(times), (chain, times)
+    finally:
+        srv.close()
