@@ -565,43 +565,6 @@ struct WindowMaps {
   CUtensorMap c, syn, a16, ana;
 };
 
-// Every block of the grid arrives, then waits until all have: a counter
-// that only grows (target = blocks x barriers so far); one thread a block
-// arrives with a release and polls with acquires (the pattern of CUTLASS's
-// grid barrier; relaxed polls with one fence after them measured slower).
-// The epilogues' generic stores are read after it by TMA (the async
-// proxy): every thread fences the proxies on both sides. Ten seconds
-// without the others means a block is not resident or the run is broken:
-// trap.
-__device__ void grid_sync(unsigned* count, unsigned& target) {
-  asm volatile("fence.proxy.async;\n" ::: "memory");
-  __syncthreads();
-  target += gridDim.x;
-  if (threadIdx.x == 0) {
-    asm volatile(
-        "fence.acq_rel.gpu;\n"
-        "red.relaxed.gpu.global.add.u32 [%0], 1;\n" ::"l"(count)
-        : "memory");
-    uint32_t spins = 0;
-    uint64_t t_first = 0;
-    while (true) {
-      unsigned v;
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-                   : "=r"(v)
-                   : "l"(count)
-                   : "memory");
-      if (v >= target) break;
-      if ((++spins & 1023) == 0) {
-        const uint64_t now = globaltimer();
-        if (t_first == 0) t_first = now;
-        else if (now - t_first > 10000000000ull) __trap();
-      }
-    }
-  }
-  __syncthreads();
-  asm volatile("fence.proxy.async;\n" ::: "memory");
-}
-
 // steps [p_begin, p_end): 0 the start; 1 + 3 it + (0 synthesis, 1 overlap-
 // add, 2 analysis) for it < n_iters; 3 n_iters + 1 the last synthesis;
 // 3 n_iters + 2 the waveform and the returned spectrum. Warps 0 .. 4 NWG - 1

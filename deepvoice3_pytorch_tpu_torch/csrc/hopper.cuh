@@ -1,8 +1,10 @@
 // Hopper building blocks shared by the port's hand-written kernels
-// (conv_taps.cu, griffin_lim.cu); each .cu is its own library and includes
-// this once.
+// (conv_taps.cu, griffin_lim.cu, fused_decode.cu); each .cu is its own
+// library and includes this once.
 //   * mbarriers, with a wait that traps after ten seconds instead of hanging
 //     the card (a wait that long is a broken pipeline, never a slow one);
+//   * grid_sync: the grid barrier of a cooperative launch, with the same
+//     ten-second trap;
 //   * TMA tile loads and the tensor-map encode (cuTensorMapEncodeTiled,
 //     looked up through the runtime so that no library links -lcuda);
 //   * wgmma: descriptors for 128-byte swizzled tiles, fences, and the
@@ -69,6 +71,44 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       else if (now - t_first > 10000000000ull) __trap();
     }
   }
+}
+
+// Grid barrier of a cooperative launch. Every block of the grid arrives,
+// then waits until all have: a counter that only grows (target = blocks x
+// barriers so far); one thread a block arrives with a release and polls
+// with acquires (the pattern of CUTLASS's grid barrier; relaxed polls with
+// one fence after them measured slower). ASYNC_PROXY: generic stores before
+// the barrier are read after it by TMA (the async proxy), so every thread
+// fences the proxies on both sides. Ten seconds without the others means a
+// block is not resident or the run is broken: trap.
+template <bool ASYNC_PROXY = true>
+__device__ void grid_sync(unsigned* count, unsigned& target) {
+  if (ASYNC_PROXY) asm volatile("fence.proxy.async;\n" ::: "memory");
+  __syncthreads();
+  target += gridDim.x;
+  if (threadIdx.x == 0) {
+    asm volatile(
+        "fence.acq_rel.gpu;\n"
+        "red.relaxed.gpu.global.add.u32 [%0], 1;\n" ::"l"(count)
+        : "memory");
+    uint32_t spins = 0;
+    uint64_t t_first = 0;
+    while (true) {
+      unsigned v;
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(v)
+                   : "l"(count)
+                   : "memory");
+      if (v >= target) break;
+      if ((++spins & 1023) == 0) {
+        const uint64_t now = globaltimer();
+        if (t_first == 0) t_first = now;
+        else if (now - t_first > 10000000000ull) __trap();
+      }
+    }
+  }
+  __syncthreads();
+  if (ASYNC_PROXY) asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 
 // 3-D TMA load of one box at (c0, c1, c2), completion on `bar`

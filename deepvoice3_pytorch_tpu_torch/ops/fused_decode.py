@@ -14,29 +14,38 @@ Both run `chunk` frames between checks of the done latch (the rule
 first chunk in which every sample has finished; the latch costs one small
 device-to-host read per chunk.
 
-`FusedDecoder` is the public launch-and-carry interface: it folds the
-weight norms once, packs the plan, K/V and mask, and launches one chunk at a
-time from an explicit `DecodeCarry` (previous frame, last_attended, ring
-buffers), so a streaming caller can resume a decode where it stopped.
+`FusedDecoder` is the public launch-and-carry interface: it takes the
+packed plan (`packed_plan`: the op table compiled into the kernel's stages,
+`b1_stages`, and the folded weights split by output column over the
+launch's blocks, `b1_layout`; built once per parameter set and cached on
+the parameter tensors' identities and version counters), packs K/V and
+mask, and launches one chunk at a time, one cooperative launch over the
+whole card, from an explicit `DecodeCarry` (previous frame, last_attended,
+ring buffers), so a streaming caller can resume a decode where it stopped.
 `PlainDecoder` has the same interface over the plain step for CPU tensors;
 `make_decoder` picks the one for the inputs' device.
 
 Continuous batching (serving.py) decodes a batch of slots, each at its own
 point of its own utterance. `SlotDecoder` is B1 in its serving modes: the
-plan is folded once per engine, the per-slot inputs (`SlotInputs`: K/V,
-additive mask, position rates, speaker biases, context scales) belong to
-the caller, which rewrites one row at each admission (`write_slot_row`) and
-pads the text dimension when a longer text arrives (`grow_slot_inputs`;
-the ring placement follows the new Tk at the next launch), and every row
-reads the position-table row of its own decoded count, which the launch
-advances (`SlotCarry.pos`). `PlainSlotDecoder` is its plain version with
-the same interface; `make_slot_decoder` picks the one for the device.
+packed plan is shared with every decoder of the same parameters, the
+per-slot inputs (`SlotInputs`: K/V, additive mask, position rates, speaker
+biases, context scales, and for the kernel the K/V folded with the
+attention projections) belong to the caller, which rewrites and folds one
+row at each admission (`write_slot_row`) and pads the text dimension when
+a longer text arrives (`grow_slot_inputs`; the attention scratch follows the
+new Tk at the next launch), and every row reads the position-table row of
+its own decoded count, which the launch advances (`SlotCarry.pos`).
+`PlainSlotDecoder` is its plain version with the same interface;
+`make_slot_decoder` picks the one for the device.
 """
 
 import ctypes
 import math
+import weakref
+from collections import OrderedDict
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -52,8 +61,6 @@ OP_WORDS = 10
 (OP_LINEAR, OP_GLU, OP_ATTN, OP_SAVE_RES, OP_RESIDUAL, OP_HIGHWAY,
  OP_LINEAR2, OP_SAVE_Q) = range(8)
 _ACT = {None: 0, "relu": 1, "sigmoid": 2}
-_THREADS = 512          # csrc/fused_decode.cu:NT
-BUF_WORDS = 5           # csrc/fused_decode.cu:BUF_WORDS
 
 
 class FusedDecodeOut(NamedTuple):
@@ -104,8 +111,6 @@ class Plan(NamedTuple):
     fc: tuple             # (w offset, b offset) of fc
     n_att: int
     sp_widths: tuple      # cout of each speaker-bias slot (multi-speaker GLU)
-    act_dim: int          # widest activation vector
-    cat_dim: int          # widest concatenated tap vector (kw * cin)
 
 
 def build_plan(params, cfg):
@@ -127,8 +132,6 @@ def build_plan(params, cfg):
     """
     chunks, offset = [], [0]
     ops, buffers = [], []
-    dims = [cfg.in_dim * cfg.r, state_dim(cfg)]
-    cat_dim = [1]
     sp_widths = []
 
     def push(t):
@@ -154,13 +157,10 @@ def build_plan(params, cfg):
             ring_off = sum(r * c for r, c, _ in buffers)
             buffers.append((rows, s.in_channels, ring_off))
             buf = len(buffers) - 1
-        dims.extend([s.in_channels, 2 * s.out_channels])
-        cat_dim[0] = max(cat_dim[0], s.kernel_size * s.in_channels)
         return w, buf
 
     def linear(p, s):
         w = core.conv1d_weight(p["conv"])[0]
-        dims.extend(w.shape)
         op(OP_LINEAR, _ACT[s.activation], w.shape[0], w.shape[1], push(w),
            push(p["conv"]["b"]))
 
@@ -184,7 +184,6 @@ def build_plan(params, cfg):
     def attn(p_attn, idx, monotonic, spec):
         wq = core.linear_weight(p_attn["query_proj"])
         wo = core.linear_weight(p_attn["out_proj"])
-        dims.extend(wq.shape)
         op(OP_ATTN, idx, int(monotonic), spec.window_backward,
            spec.window_ahead, push(wq), push(p_attn["query_proj"]["b"]),
            push(wo), push(p_attn["out_proj"]["b"]))
@@ -215,7 +214,6 @@ def build_plan(params, cfg):
         p0 = params["audio_decoder"][0]
         w = core.conv1d_weight(p0["conv"])[0]           # (2D, D)
         D = w.shape[0] // 2
-        dims.extend(w.shape)
         op(OP_LINEAR2, _ACT[s0.activation], D, w.shape[1], push(w[:D]),
            push(w[D:]), push(p0["conv"]["b"]))
         stack(params["audio_decoder"][1:], cfg.audio_decoder[1:])
@@ -240,83 +238,376 @@ def build_plan(params, cfg):
     device = w_last.device
     return Plan(torch.tensor(ops, dtype=torch.int32, device=device),
                 tuple(buffers), torch.cat(chunks).contiguous(), last, fc,
-                n_att, tuple(sp_widths), max(dims + list(w_last.shape)),
-                cat_dim[0])
+                n_att, tuple(sp_widths))
 
 
 # ---------------------------------------------------------------------------
-# shared-memory budget and ring placement
+# the kernel's stages: the op table compiled for one persistent launch
 # ---------------------------------------------------------------------------
+
+ST_WORDS = 32           # csrc/fused_decode.cu:ST_WORDS
+(K_MV, K_ATT) = range(2)
+(E_LIN, E_GLU, E_HW, E_LAST) = range(4)
+(S_KIND, S_EPI, S_K, S_U, S_PAIRED, S_IN, S_IN2, S_OUT, S_RES, S_RING,
+ S_KW, S_DIL, S_CIN, S_FLAG, S_SLOT, S_BIAS, S_NCP, S_WOFF, S_RESIDENT,
+ S_ROT, S_AIDX, S_MONO, S_BACK, S_AHEAD, S_RINGW, S_DSTATE,
+ S_QOUT) = range(27)
+BUF_PREV0, BUF_PREV1, BUF_FPE = range(3)
+IN_PREV = -1            # a stage input: the step's previous frame
+_THREADS = 512          # csrc/fused_decode.cu:NT
+_WARPS = _THREADS // 32
+_RB = 32                # csrc/fused_decode.cu:RB
+_WIN_MAX = 64           # csrc/fused_decode.cu:WIN_MAX
+SMEM_LIMIT = 232448     # dynamic shared memory a block may have on an H100
+
+
+class Stage(NamedTuple):
+    words: list           # ST_WORDS ints; layout fields filled by b1_layout
+    ops: tuple            # indices of the op-table entries it carries out
+    w_offs: tuple         # offsets in plan.weights of its weights: the
+                          # (K, N) matrix, LINEAR2's two halves, last_conv's
+                          # and fc's, an attention's wq, bq and wo
+
+
+def b1_stages(plan, C, out_dim):
+    """The op table as the kernel's stages, a grid barrier after each:
+    every matrix-vector product is an MV stage (LINEAR, LINEAR2, the GLU /
+    highway conv over [taps | x], last_conv), its elementwise ops fused
+    into its epilogue (SAVE_RES / RESIDUAL, SAVE_Q become buffer
+    references); each attention layer is one ATT stage, its query and out
+    projections folded into the keys and values once a decode
+    (`attention_operands`); the last stage is last_conv with fc folded in
+    as one more output unit. The stage before a conv writes its output
+    into the conv's ring buffer (S_RINGW), the stage before an attention
+    also its output plus the position rows, the query (S_QOUT), and the
+    stage before the last one the decoder state (S_DSTATE). Returns
+    (stages, widths of the workspace buffers: the three fixed ones, then
+    one per stage output and query)."""
+    widths = [out_dim, out_dim, C]               # BUF_PREV0/1, FPE
+    stages = []
+
+    def new_buf(width):
+        widths.append(width)
+        return len(widths) - 1
+
+    def stage(kind, epi, ops, w_offs=(), **kw):
+        words = [0] * ST_WORDS
+        for i in (S_IN2, S_OUT, S_RES, S_RING, S_SLOT, S_RINGW, S_QOUT):
+            words[i] = -1
+        words[S_KIND], words[S_EPI] = kind, epi
+        for name, value in kw.items():
+            words[globals()["S_" + name.upper()]] = value
+        stages.append(Stage(words, tuple(ops), tuple(w_offs)))
+        return words
+
+    x, res, qs, pending = IN_PREV, None, None, []
+    producer = None          # words of the stage that made x
+    for i, op in enumerate(plan.ops.tolist()):
+        kind = op[0]
+        if kind == OP_SAVE_RES:
+            res = x
+            pending.append(i)
+            continue
+        if kind == OP_SAVE_Q:
+            qs = x
+            pending.append(i)
+            continue
+        if kind == OP_RESIDUAL:
+            if producer is None or res is None or producer[S_RES] >= 0:
+                raise ValueError("fused decode: RESIDUAL at op %d follows "
+                                 "no stage since its SAVE_RES" % i)
+            producer[S_RES] = res
+            stages[-1] = stages[-1]._replace(ops=stages[-1].ops + (i,))
+            res = None
+            continue
+        ops = tuple(pending) + (i,)
+        pending = []
+        if kind == OP_LINEAR:
+            act, K, N, w, b = op[1:6]
+            out = new_buf(N)
+            producer = stage(K_MV, E_LIN, ops, (w,), k=K, u=N,
+                             **{"in": x}, out=out, flag=act, bias=b)
+        elif kind == OP_LINEAR2:
+            act, K, N, w_top, w_bot, b = op[1:7]
+            if qs is None:
+                raise ValueError("fused decode: LINEAR2 without SAVE_Q")
+            out = new_buf(N)
+            producer = stage(K_MV, E_LIN, ops, (w_top, w_bot), k=2 * K, u=N,
+                             **{"in": x}, in2=qs, out=out, flag=act, bias=b)
+        elif kind == OP_GLU:
+            kw_, dil, resid, buf, cin, cout, w, b, slot = op[1:10]
+            out = new_buf(cout)
+            producer = stage(K_MV, E_GLU, ops, (w,), k=kw_ * cin, u=cout,
+                             paired=1, **{"in": x}, out=out, ring=buf,
+                             kw=kw_, dil=dil, cin=cin, flag=resid,
+                             slot=slot, bias=b)
+        elif kind == OP_HIGHWAY:
+            kw_, dil, buf, glu_, width, w, b = op[1:8]
+            out = new_buf(width)
+            producer = stage(K_MV, E_HW, ops, (w,), k=kw_ * width, u=width,
+                             paired=1, **{"in": x}, out=out, ring=buf,
+                             kw=kw_, dil=dil, cin=width, flag=glu_, bias=b)
+        elif kind == OP_ATTN:
+            idx, mono, back, ahead, wq, bq, wo, bo = op[1:9]
+            if producer is None:
+                raise ValueError("fused decode: an attention reads the "
+                                 "previous frame directly")
+            q = new_buf(C)                  # x + the position rows
+            producer[S_QOUT] = q
+            out = new_buf(C)
+            producer = stage(K_ATT, 0, ops, (wq, bq, wo), **{"in": q},
+                             out=out, aidx=idx, mono=mono, back=back,
+                             ahead=ahead, bias=bo)
+        else:
+            raise ValueError("fused decode: op kind %d" % kind)
+        x = out
+    if x == IN_PREV:
+        raise ValueError("fused decode: an empty op table")
+    stage(K_MV, E_LAST, tuple(pending), (plan.last[0], plan.fc[0]), k=C,
+          u=out_dim + 1, **{"in": x}, bias=plan.last[1])
+    stages[-2].words[S_DSTATE] = 1
+    for i, st in enumerate(stages):
+        if st.words[S_RING] >= 0:
+            if i == 0:
+                raise ValueError("fused decode: a conv reads the previous "
+                                 "frame directly")
+            stages[i - 1].words[S_RINGW] = st.words[S_RING]
+    return stages, widths
+
+
+def attention_weights(plan, stages, C):
+    """The attention layers' projections, stacked for attention_operands:
+    (n_att, 2, E, C + 1) float64, [Wq^T | bq] and [Wo | 0] of each layer
+    (Wq (C, E) the query projection, bq its bias, Wo (E, C) the out
+    projection); None without an attention layer."""
+    w = plan.weights
+    mats = []
+    for st in stages:
+        if st.words[S_KIND] != K_ATT:
+            continue
+        o_wq, o_bq, o_wo = st.w_offs
+        E = (o_bq - o_wq) // C
+        wq = w[o_wq:o_wq + C * E].view(C, E)
+        wo = w[o_wo:o_wo + E * C].view(E, C)
+        mats.append(torch.stack([
+            torch.cat([wq.T, w[o_bq:o_bq + E][:, None]], 1),
+            torch.cat([wo, wo.new_zeros(E, 1)], 1)]))
+    return torch.stack(mats).double().contiguous() if mats else None
+
+
+def attention_operands(att_w, kv):
+    """The attention layers' query and out projections folded into their
+    keys and values, once a decode: for layer a with keys K and values V
+    (kv[a], each (B, Tk, E)), K [Wq^T | bq] and V [Wo | 0] (att_w: the
+    layout's attention_weights), one f32 (n_att, 2, B, Tk, C + 1) tensor,
+    summed in float64 and rounded once, as fc's fold into last_conv is.
+    The kernel scores q . (K Wq^T)[k] + (K bq)[k] and takes the output
+    sum_k p_k (V Wo)[k]."""
+    if att_w is None:
+        return kv.new_zeros(1)
+    return torch.matmul(kv.double(), att_w[:, :, None]).to(
+        kv.dtype).contiguous()
+
+
+def stage_weight(plan, st):
+    """The (K, N) weight and (N,) bias of an MV stage, from plan.weights: a
+    LINEAR2 stage's two halves stacked; the last stage's fc column is
+    W_last @ w_fc with bias b_last . w_fc + b_fc, summed in float64."""
+    K, U = st.words[S_K], st.words[S_U]
+    N = 2 * U if st.words[S_PAIRED] else U
+    w, b = plan.weights, st.words[S_BIAS]
+    if st.words[S_EPI] == E_LAST:
+        o_last, o_fc = st.w_offs
+        W = w[o_last:o_last + K * (N - 1)].view(K, N - 1)
+        bias = w[b:b + N - 1]
+        w_fc, b_fc = w[o_fc:o_fc + N - 1].double(), w[plan.fc[1]].double()
+        return (torch.cat([W, (W.double() @ w_fc).float()[:, None]], 1),
+                torch.cat([bias, (bias.double() @ w_fc + b_fc)
+                           .float()[None]]))
+    if len(st.w_offs) == 2:
+        W = torch.cat([w[o:o + K // 2 * N].view(K // 2, N)
+                       for o in st.w_offs])
+    else:
+        W = w[st.w_offs[0]:st.w_offs[0] + K * N].view(K, N)
+    return W, w[b:b + N]
+
+
+def block_units(U, grid, rot, j):
+    """Output units [u0, u1) of block j in a stage of U units: the units cut
+    into `grid` contiguous parts, block j taking part (j - rot) mod grid
+    (csrc/fused_decode.cu:block_units)."""
+    p = (j + grid - rot % grid) % grid
+    return U * p // grid, U * (p + 1) // grid
+
+
+def stage_columns(U, paired, grid, rot):
+    """(grid, ncp) weight columns of each block's slice of a stage, -1 for
+    padding: its units, and for a paired stage (GLU, highway) their gate
+    columns U + u after them; ncp, the slice's width, is the widest block's
+    rounded up to a power of two (the kernel's work split shifts where it
+    would divide)."""
+    width = -(-U // grid) * (2 if paired else 1)
+    ncp = 1 << (width - 1).bit_length()
+    idx = np.full((grid, ncp), -1, np.int64)
+    for j in range(grid):
+        u0, u1 = block_units(U, grid, rot, j)
+        idx[j, :u1 - u0] = np.arange(u0, u1)
+        if paired:
+            idx[j, u1 - u0:2 * (u1 - u0)] = U + np.arange(u0, u1)
+    return idx, ncp
 
 
 def _round4(n):
     return (n + 3) & ~3
 
 
-def smem_floats(act_dim, cat_dim, C, E, Tk, n_buf, n_la, ring_smem=0):
-    """Floats of dynamic shared memory one block of the kernel takes: the
-    mirror of csrc/fused_decode.cu:layout (FusedDecoder checks the two
+LA_RESERVE = 64         # ints of last_attended a block may hold
+
+
+def b1_meta_ints(n_stages, n_bufs, n_ring, la_ints=LA_RESERVE):
+    """4-byte words of a block's shared memory that hold the tables, the
+    block's units of each stage, the rings' heads and its rows'
+    last_attended: the mirror of csrc/fused_decode.cu:meta_ints."""
+    return _round4(n_stages * (ST_WORDS + 2) + 2 * n_bufs + 5 * n_ring
+                   + la_ints)
+
+
+def b1_smem_floats(meta, resident, max_ncp):
+    """4-byte words of dynamic shared memory a block takes: the mirror of
+    csrc/fused_decode.cu:smem_floats (the decoders check the two
     agree)."""
-    return (_round4(ring_smem) + 3 * _round4(act_dim) + _round4(cat_dim)
-            + 4 * _round4(C) + 2 * _round4(E) + 2 * _round4(Tk)
-            + 4 * _THREADS + 64 + _round4(n_buf + n_la))
+    return (meta + _round4(resident) + _RB * max_ncp + _WARPS * 8
+            + _WIN_MAX + 40)
 
 
-def place_rings(buffers, budget_floats):
-    """Where each ring buffer lives, given `budget_floats` of shared memory
-    for them: the smallest first (every step reads kw taps of a buffer
-    whatever its length, so the long dilated ones are the ones to move),
-    the rest in a per-row scratch in device memory. Returns
-    (((offset in its place, in shared memory), ...) in buffer order,
-    shared floats, scratch floats)."""
-    placed = [None] * len(buffers)
-    smem = scratch = 0
-    for i in sorted(range(len(buffers)),
-                    key=lambda i: (buffers[i][0] * buffers[i][1], i)):
-        size = _round4(buffers[i][0] * buffers[i][1])
-        if smem + size <= budget_floats:
-            placed[i] = (smem, 1)
-            smem += size
-        else:
-            placed[i] = (scratch, 0)
-            scratch += size
-    return tuple(placed), smem, scratch
+class B1Layout(NamedTuple):
+    stages: list          # Stage, words complete
+    widths: list          # workspace buffer widths
+    table: Any            # (n_stages, ST_WORDS) int32
+    widths_t: Any         # (n_bufs,) int32, the widths on the device
+    att_w: Any            # attention_weights, or None
+    rings: Any            # (n_ring, 4) int32: rows, width, offset in a
+                          # carry row, offset in a scratch row (rows + 1
+                          # slots each)
+    wpack: Any            # (grid, per_block) f32: each block's slices
+    grid: int
+    per_block: int
+    resident: int         # floats of each block's slices in shared memory
+    max_ncp: int
+    meta: int             # words of the tables (b1_meta_ints, reserved)
+    smem_bytes: int       # at most, with LA_RESERVE words of last_attended
 
 
-def _placement(plan, C, E, tk, n_la, dev, smem_budget):
-    """Ring placement of `plan` at text length tk under smem_budget bytes
-    (None: the device's limit per block), checked against the kernel's own
-    layout. Returns (bufs (n_buf, BUF_WORDS) int32 on dev, shared ring
-    floats, scratch floats). A plan whose fixed part alone exceeds the
-    budget raises."""
-    lib = KERNEL.lib
-    if smem_budget is None:
-        smem_budget = lib.dv3_fused_decode_max_smem(dev.index or 0)
-        if smem_budget <= 0:
-            KERNEL.check(-smem_budget, "shared memory per block")
-    fixed = smem_floats(plan.act_dim, plan.cat_dim, C, E, tk,
-                        len(plan.buffers), n_la)
-    if 4 * fixed > smem_budget:
+def b1_layout(plan, C, out_dim, grid, smem_budget=SMEM_LIMIT):
+    """The stages of `plan` on `grid` blocks with each block's slice of
+    every MV stage's weights packed once, (K + 1) x ncp floats: the K rows
+    of its columns' weights, then their biases. Slices are kept in shared
+    memory in stage order while they fit in smem_budget bytes besides the
+    kernel's fixed part, the rest is read from device memory each step; a
+    block's resident slices come first in its row of `wpack`. A budget
+    below the fixed part raises."""
+    stages, widths = b1_stages(plan, C, out_dim)
+    mv = [st for st in stages if st.words[S_KIND] == K_MV]
+    cols, rot = [], 0
+    for st in mv:
+        st.words[S_ROT] = rot
+        idx, ncp = stage_columns(st.words[S_U], st.words[S_PAIRED], grid,
+                                 rot)
+        st.words[S_NCP] = ncp
+        cols.append(idx)
+        rot = (rot + st.words[S_U]) % grid
+    max_ncp = max(st.words[S_NCP] for st in mv)
+    meta = b1_meta_ints(len(stages), len(widths), len(plan.buffers))
+    budget = smem_budget // 4 - b1_smem_floats(meta, 0, max_ncp)
+    if budget < 0:
         raise ValueError(
-            "fused_decode: the plan needs %d bytes of shared memory "
-            "besides its ring buffers, more than the %d bytes a block "
-            "may have" % (4 * fixed, smem_budget))
-    placed, ring_smem, scratch_floats = place_rings(
-        plan.buffers, smem_budget // 4 - fixed)
-    bufs = torch.tensor(
-        [[r, c, off, loc, sm] for (r, c, off), (loc, sm)
-         in zip(plan.buffers, placed)] or [[0] * BUF_WORDS],
-        dtype=torch.int32, device=dev)
-    want = 4 * (fixed + ring_smem)
-    got = lib.dv3_fused_decode_smem_bytes(ctypes.byref(_Args(
-        n_buf=len(plan.buffers), Tk=tk, E=E, C=C, n_la=n_la,
-        ring_smem_floats=ring_smem, act_dim=plan.act_dim,
-        cat_dim=plan.cat_dim)))
-    if got != want:
-        raise RuntimeError("fused_decode: the kernel's shared-memory "
-                           "layout (%d bytes) differs from the host's "
-                           "(%d)" % (got, want))
-    return bufs, ring_smem, scratch_floats
+            "fused_decode: the kernel needs %d bytes of shared memory "
+            "besides its weights, more than the budget of %d"
+            % (4 * b1_smem_floats(meta, 0, max_ncp), smem_budget))
+    sizes = [_round4((st.words[S_K] + 1) * st.words[S_NCP]) for st in mv]
+    used = 0
+    for st, size in zip(mv, sizes):
+        st.words[S_RESIDENT] = int(used + size <= budget)
+        used += size if st.words[S_RESIDENT] else 0
+    off, order = 0, sorted(range(len(mv)),
+                           key=lambda i: (not mv[i].words[S_RESIDENT], i))
+    for i in order:
+        mv[i].words[S_WOFF] = off
+        off += sizes[i]
+    slices = []
+    for i in order:
+        W, bias = stage_weight(plan, mv[i])
+        W = torch.cat([W, bias[None]])
+        K, N = W.shape
+        idx = torch.from_numpy(np.where(cols[i] < 0, N, cols[i]))
+        Wz = torch.cat([W, W.new_zeros(K, 1)], 1)
+        sl = Wz[:, idx.reshape(-1).to(W.device)].view(K, grid, -1) \
+            .permute(1, 0, 2).reshape(grid, -1)
+        slices.append(torch.nn.functional.pad(sl, (0, sizes[i]
+                                                   - sl.shape[1])))
+    dev = plan.weights.device
+    rings, slot_off = [], 0
+    for r, c, carry_off in plan.buffers:
+        rings.append([r, c, carry_off, slot_off])
+        slot_off += (r + 1) * c
+    rings = torch.tensor(rings or [[0, 0, 0, 0]], dtype=torch.int32,
+                         device=dev)
+    table = torch.tensor([st.words for st in stages], dtype=torch.int32,
+                         device=dev)
+    return B1Layout(stages, widths, table,
+                    torch.tensor(widths, dtype=torch.int32, device=dev),
+                    attention_weights(plan, stages, C), rings,
+                    torch.cat(slices, 1).contiguous(), grid, off, used,
+                    max_ncp, meta, 4 * b1_smem_floats(meta, used, max_ncp))
+
+
+# the packed plans of the parameter sets in use: (params, cfg, grid,
+# budget, the tensors' identities and versions) -> (weak references to the
+# tensors, (Plan, B1Layout)); the few most recent kept
+_PACKED = OrderedDict()
+_PACKED_KEEP = 8
+
+
+def _version(t):
+    """t's version counter (bumped by every in-place write), None for an
+    inference tensor, which keeps none."""
+    return None if t.is_inference() else t._version
+
+
+def _param_tensors(params):
+    if isinstance(params, torch.nn.Module):
+        return list(params.parameters())
+    if isinstance(params, dict):
+        return [t for v in params.values() for t in _param_tensors(v)]
+    if isinstance(params, (list, tuple)):
+        return [t for v in params for t in _param_tensors(v)]
+    return [params] if isinstance(params, torch.Tensor) else []
+
+
+def packed_plan(params, cfg, grid, smem_budget=SMEM_LIMIT):
+    """(Plan, B1Layout) of a decoder's parameters, built once per parameter
+    set: cached on the identity and the version counter of every parameter
+    tensor, so an in-place update of any weight rebuilds it."""
+    tensors = _param_tensors(params)
+    try:
+        hash(cfg)
+        cfg_key = cfg
+    except TypeError:
+        cfg_key = id(cfg)
+    key = (id(params), cfg_key, grid, smem_budget,
+           tuple((id(t), _version(t)) for t in tensors))
+    hit = _PACKED.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)):
+        _PACKED.move_to_end(key)
+        return hit[1]
+    plan = build_plan(params, cfg)
+    layout = b1_layout(plan, state_dim(cfg), cfg.in_dim * cfg.r, grid,
+                       smem_budget)
+    packed = (plan, layout)
+    _PACKED[key] = ([weakref.ref(t) for t in tensors], packed)
+    while len(_PACKED) > _PACKED_KEEP:
+        _PACKED.popitem(last=False)
+    return packed
 
 
 # ---------------------------------------------------------------------------
@@ -324,26 +615,51 @@ def _placement(plan, C, E, tk, n_la, dev, smem_budget):
 # ---------------------------------------------------------------------------
 
 
-class _Args(ctypes.Structure):
-    """Mirror of FusedDecodeArgs in csrc/fused_decode.cu."""
+class _B1Args(ctypes.Structure):
+    """Mirror of B1Args in csrc/fused_decode.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "ops", "bufs", "weights", "fpe", "wq", "addmask", "kv", "sp", "prev",
-        "la", "ring", "scratch", "out", "align", "done", "dstate")]
+        "stages", "rings", "widths", "wpack", "fpe", "wq",
+        "addmask", "kv", "weights", "sp", "row_scale", "prev", "la",
+        "ring", "scratch",
+        "ws", "att", "out", "align", "done", "dstate", "pos", "sync",
+        "trace")]
         + [(n, ctypes.c_int) for n in (
-            "n_ops", "n_buf", "B", "Tk", "E", "C", "out_dim", "n_att", "n_la",
-            "ring_floats", "ring_smem_floats", "scratch_floats", "sp_width",
-            "fpe_raw", "T_total", "t0", "steps", "last_w", "last_b", "fc_w",
-            "fc_b", "act_dim", "cat_dim")]
-        + [("ctx_scale", ctypes.c_float), ("pos", ctypes.c_void_p),
-           ("row_scale", ctypes.c_void_p), ("fpe_rows", ctypes.c_int)])
+            "n_stages", "n_bufs", "n_ring", "B", "Tk", "C", "out_dim",
+            "n_att", "n_la", "ring_floats", "scratch_floats", "sp_width",
+            "fpe_raw", "T_total", "t0", "steps", "fpe_rows", "per_block",
+            "resident", "max_ncp")]
+        + [("ctx_scale", ctypes.c_float)])
 
 
 KERNEL = _build.Kernel("fused_decode.cu", {
-    "dv3_fused_decode": [ctypes.POINTER(_Args), ctypes.c_void_p,
-                         ctypes.c_int],
-    "dv3_fused_decode_smem_bytes": [ctypes.POINTER(_Args)],
-    "dv3_fused_decode_max_smem": [ctypes.c_int],
+    "dv3_fused_decode": [ctypes.POINTER(_B1Args), ctypes.c_int, ctypes.c_int,
+                         ctypes.c_void_p, ctypes.c_int],
+    "dv3_b1_smem_bytes": [ctypes.c_int] * 6,
+    "dv3_b1_device_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
 })
+
+_DEVICE = {}    # device index -> (SMs, shared memory a block may have)
+_SYNC = {}      # (device, stream) -> the grid barrier's two counters
+
+
+def device_info(dev):
+    """(SMs, bytes of dynamic shared memory a block may have) of `dev`."""
+    i = dev.index or 0
+    if i not in _DEVICE:
+        out = (ctypes.c_int * 2)()
+        KERNEL.check(KERNEL.lib.dv3_b1_device_info(i, out), "device info")
+        _DEVICE[i] = (out[0], out[1])
+    return _DEVICE[i]
+
+
+def _sync_counters(dev, stream):
+    """Two uint32 counters for the grid barrier, zeroed once per (device,
+    stream): each launch leaves them at zero, and launches on one stream
+    never overlap."""
+    key = (dev.index or 0, stream.cuda_stream)
+    if key not in _SYNC:
+        _SYNC[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return _SYNC[key]
 
 
 def _check(t, name, shape, dtype, device):
@@ -374,39 +690,109 @@ class _Decoder:
                 torch.zeros(self.B, total, self.C, **z))
 
 
-class FusedDecoder(_Decoder):
-    """Launch-invariant state of one decode on the card: the plan with
-    folded weights, the stacked projected K/V, the additive mask, the query
-    position rows of frames 1..n_steps (`inputs["fpe_table"]`, its last row
-    repeated past its end; raw angles with per-row rates when
-    `inputs["fpe_raw"]`, else finished encodings), the speaker biases as
-    one (n_sp, B, width) tensor (zeros when a multi-speaker model decodes
-    without a speaker, as the plain step then adds none), and the ring
-    placement: the buffers that
-    fit under `smem_budget` bytes of shared memory (default: the device's
-    limit per block) stay there, the rest go to a per-row scratch in device
-    memory. A plan whose fixed part alone exceeds the budget raises."""
+class _KernelDecoder(_Decoder):
+    """What FusedDecoder and SlotDecoder share: the packed plan on `grid`
+    blocks (default: one an SM) under smem_budget bytes of shared memory a
+    block (default: the device's limit), the workspace and ring scratch of
+    B rows, the launch."""
 
-    def __init__(self, params, cfg, inputs, mask, n_steps, smem_budget=None):
-        kv = [p for p in inputs["projected_kv"] if p is not None]
-        keys0 = kv[0][0]
-        self.device = dev = keys0.device
-        if self.device.type != "cuda":
-            raise ValueError("FusedDecoder runs on CUDA tensors only (got %s)"
-                             % self.device)
-        f32 = torch.float32
-        self.plan = p = build_plan(params, cfg)
-        if p.n_att != len(kv):
-            raise ValueError("need %d K/V pairs, got %d" % (p.n_att, len(kv)))
-        self.B, self.tk, self.E = keys0.shape
+    def _setup(self, params, cfg, B, device, smem_budget, grid):
+        if device.type != "cuda":
+            raise ValueError("%s runs on CUDA tensors only (got %s)"
+                             % (type(self).__name__, device))
+        sms, limit = device_info(device)
+        self.grid = grid or sms
+        self.smem_budget = limit if smem_budget is None else smem_budget
+        self.plan, self.layout = packed_plan(params, cfg, self.grid,
+                                             self.smem_budget)
+        lay = self.layout
+        self.device, self.dtype, self.B = device, torch.float32, B
         self.C = state_dim(cfg)
         self.out_dim = cfg.in_dim * cfg.r
-        self.dtype = f32
-        self.n_la = max(p.n_att, 1)
-        self.ring_floats = sum(r * c for r, c, _ in p.buffers)
-        if p.act_dim > 4 * _THREADS:
-            raise ValueError("fused_decode: widths above %d are not supported"
-                             % (4 * _THREADS))
+        self.n_la = max(self.plan.n_att, 1)
+        la_ints = -(-B // lay.grid) * self.n_la
+        if la_ints > LA_RESERVE:
+            raise ValueError("fused_decode: %d rows on %d blocks hold more "
+                             "last_attended than a block keeps (%d)"
+                             % (B, lay.grid, LA_RESERVE))
+        counts = (len(lay.stages), len(lay.widths), len(self.plan.buffers))
+        self.smem_bytes = 4 * b1_smem_floats(
+            b1_meta_ints(*counts, la_ints), lay.resident, lay.max_ncp)
+        got = KERNEL.lib.dv3_b1_smem_bytes(*counts, la_ints, lay.resident,
+                                           lay.max_ncp)
+        if got != self.smem_bytes:
+            raise RuntimeError("fused_decode: the kernel's shared-memory "
+                               "layout (%d bytes) differs from the host's "
+                               "(%d)" % (got, self.smem_bytes))
+        self.ring_floats = sum(r * c for r, c, _ in self.plan.buffers)
+        self.sp_width = max(self.plan.sp_widths or (0,))
+        # the kernel lays the buffers out (B, round4(width)) one after the
+        # other; no table to upload, so no wait for the stream here
+        self.ws = torch.empty(B * sum(_round4(w) for w in lay.widths),
+                              device=device)
+        self.scratch_floats = sum((r + 1) * c for r, c, _ in
+                                  self.plan.buffers)
+        self.scratch = torch.empty(B, max(self.scratch_floats, 1),
+                                   device=device)
+        self.att = None
+
+    def _scores(self, tk):
+        """(2, B, tk) scratch of the attention stages."""
+        if self.att is None or self.att.shape[2] != tk:
+            self.att = torch.empty(2, self.B, tk, device=self.device)
+        return self.att
+
+    def _launch(self, entry, ptrs, sizes, trace):
+        p, lay, dev = self.plan, self.layout, self.device
+        stream = torch.cuda.current_stream(dev)
+        if trace is not None:
+            _check(trace, "trace", (2 + 3 * sizes["steps"]
+                                    * len(lay.stages),), torch.int64, dev)
+        args = _B1Args(
+            stages=lay.table.data_ptr(), rings=lay.rings.data_ptr(),
+            widths=lay.widths_t.data_ptr(), wpack=lay.wpack.data_ptr(),
+            weights=p.weights.data_ptr(),
+            ring=ptrs.pop("ring"),
+            scratch=self.scratch.data_ptr(), ws=self.ws.data_ptr(),
+            sync=_sync_counters(dev, stream).data_ptr(), trace=_ptr(trace),
+            n_stages=len(lay.stages), n_bufs=len(lay.widths),
+            n_ring=len(p.buffers), B=self.B,
+            C=self.C, out_dim=self.out_dim, n_att=p.n_att, n_la=self.n_la,
+            ring_floats=self.ring_floats,
+            scratch_floats=self.scratch_floats, sp_width=self.sp_width,
+            per_block=lay.per_block,
+            resident=lay.resident, max_ncp=lay.max_ncp, **ptrs, **sizes)
+        rc = KERNEL.lib.dv3_fused_decode(ctypes.byref(args), lay.grid,
+                                         self.smem_bytes, stream.cuda_stream,
+                                         dev.index or 0)
+        KERNEL.launched(entry, "persistent")
+        KERNEL.check(rc, "fused_decode launch (%s, grid %d)"
+                     % (entry, lay.grid))
+
+
+class FusedDecoder(_KernelDecoder):
+    """Launch-invariant state of one decode on the card: the packed plan
+    (`packed_plan`: folded weights split by column over `grid` blocks,
+    cached per parameter set), the stacked projected K/V, the additive
+    mask, the query position rows of frames 1..n_steps
+    (`inputs["fpe_table"]`, its last row repeated past its end; raw angles
+    with per-row rates when `inputs["fpe_raw"]`, else finished encodings),
+    the speaker biases as one (n_sp, B, width) tensor (zeros when a
+    multi-speaker model decodes without a speaker, as the plain step then
+    adds none), and the workspace. `smem_budget`: bytes of shared memory a
+    block for the weights' placement (None: the device's limit); `grid`:
+    blocks of the launch (None: the SM count; a grid the card cannot hold
+    at once fails at launch)."""
+
+    def __init__(self, params, cfg, inputs, mask, n_steps, smem_budget=None,
+                 grid=None):
+        kv = [p for p in inputs["projected_kv"] if p is not None]
+        keys0 = kv[0][0]
+        self.B, self.tk, self.E = keys0.shape
+        self._setup(params, cfg, self.B, keys0.device, smem_budget, grid)
+        p, dev, f32 = self.plan, self.device, torch.float32
+        if p.n_att != len(kv):
+            raise ValueError("need %d K/V pairs, got %d" % (p.n_att, len(kv)))
         self.kv = torch.stack([torch.stack([k, v]) for k, v in kv]) \
             .float().contiguous()
         self.addmask = (torch.where(mask, MASK, 0.0).float().contiguous()
@@ -424,7 +810,6 @@ class FusedDecoder(_Decoder):
         if bias and len(bias) != len(p.sp_widths):
             raise ValueError("need %d speaker-bias arrays, got %d"
                              % (len(p.sp_widths), len(bias)))
-        self.sp_width = max(p.sp_widths or (0,))
         self.sp = None
         if p.sp_widths:
             self.sp = torch.zeros(len(p.sp_widths), self.B, self.sp_width,
@@ -438,12 +823,8 @@ class FusedDecoder(_Decoder):
         _check(self.kv, "kv", (p.n_att, 2, self.B, self.tk, self.E), f32,
                dev)
         _check(self.fpe, "fpe_table", (n_steps, self.C), f32, dev)
-
-        # ring placement under the shared-memory budget
-        self.bufs, self.ring_smem, self.scratch_floats = _placement(
-            p, self.C, self.E, self.tk, self.n_la, dev, smem_budget)
-        self.scratch = (torch.empty(self.B, self.scratch_floats, device=dev)
-                        if self.scratch_floats else None)
+        self.kvf = attention_operands(self.layout.att_w, self.kv)
+        self._scores(self.tk)
 
     def zero_carry(self, initial_input):
         return DecodeCarry(
@@ -455,26 +836,14 @@ class FusedDecoder(_Decoder):
     def last_attended(self, carry):
         return carry.last_attended[:, :self.plan.n_att]
 
-    def _args(self, carry, outputs, t0, steps):
-        out, align, done, dstate = outputs
-        p = self.plan
-        return _Args(
-            p.ops.data_ptr(), self.bufs.data_ptr(), p.weights.data_ptr(),
-            self.fpe.data_ptr(), _ptr(self.wq), self.addmask.data_ptr(),
-            self.kv.data_ptr(), _ptr(self.sp), carry.prev.data_ptr(),
-            carry.last_attended.data_ptr(), carry.ring.data_ptr(),
-            _ptr(self.scratch), out.data_ptr(), align.data_ptr(),
-            done.data_ptr(), dstate.data_ptr(),
-            p.ops.shape[0], len(p.buffers), self.B, self.tk, self.E, self.C,
-            self.out_dim, p.n_att, self.n_la, self.ring_floats,
-            self.ring_smem, self.scratch_floats, self.sp_width,
-            int(self.fpe_raw), out.shape[1], t0, steps, p.last[0], p.last[1],
-            p.fc[0], p.fc[1], p.act_dim, p.cat_dim,
-            self.tk * math.sqrt(1.0 / self.tk))
-
-    def launch(self, carry, outputs, t0, steps):
+    def launch(self, carry, outputs, t0, steps, trace=None):
         """Run frames t0 .. t0+steps-1 from `carry`: writes them into
-        `outputs` (from new_outputs) and updates `carry` in place."""
+        `outputs` (from new_outputs) and updates `carry` in place. trace:
+        None, or an int64 tensor of 2 + 3 * steps * stages entries that
+        receives block 0's globaltimer (ns) at the launch's start, after its
+        prologue, and for each stage of each step when its products (MV) or
+        scores (ATT) are done, when its work ends and when the grid barrier
+        after it lets block 0 on."""
         out, align, done, dstate = outputs
         total = out.shape[1]
         if t0 < 0 or t0 + steps > min(total, self.fpe.shape[0]):
@@ -490,12 +859,18 @@ class FusedDecoder(_Decoder):
         _check(align, "alignments", (self.B, total, self.tk), f32, dev)
         _check(done, "done", (self.B, total), f32, dev)
         _check(dstate, "decoder_states", (self.B, total, self.C), f32, dev)
-        args = self._args(carry, outputs, t0, steps)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = KERNEL.lib.dv3_fused_decode(ctypes.byref(args), stream,
-                                         dev.index or 0)
-        KERNEL.launched("chunk")
-        KERNEL.check(rc, "fused_decode launch")
+        self._launch("chunk", dict(
+            fpe=self.fpe.data_ptr(), wq=_ptr(self.wq),
+            addmask=self.addmask.data_ptr(), kv=self.kvf.data_ptr(),
+            sp=_ptr(self.sp), row_scale=0,
+            prev=carry.prev.data_ptr(),
+            la=carry.last_attended.data_ptr(), ring=carry.ring.data_ptr(),
+            att=self.att.data_ptr(), out=out.data_ptr(),
+            align=align.data_ptr(), done=done.data_ptr(),
+            dstate=dstate.data_ptr(), pos=0), dict(
+            Tk=self.tk, fpe_raw=int(self.fpe_raw), T_total=total,
+            t0=t0, steps=steps, fpe_rows=self.fpe.shape[0],
+            ctx_scale=self.tk * math.sqrt(1.0 / self.tk)), trace)
 
 
 class PlainDecoder(_Decoder):
@@ -579,12 +954,19 @@ class SlotInputs(NamedTuple):
     speaker_bias: Any     # (n_sp, S, width) f32 softsign biases, or None
     speaker_embed: Any    # (S, D) speaker embeddings (plain step), or None
     ctx_scale: Any        # (S,) f32 attention context scales
+    att_w: Any            # the kernel decoder's attention_weights, or None
+                          # (the plain decoder's inputs)
+    kvf: Any              # attention_operands(att_w, kv), folded one row
+                          # at a time at admission; None without att_w
 
 
-def slot_inputs(fi, n_slots, tk):
+def slot_inputs(fi, n_slots, tk, att_w=None):
     """Zeroed SlotInputs of n_slots rows and text length tk, shaped like
     the batch-1 inputs `fi` (a family's `fused_decode_inputs`) and in the
-    dtype of its keys: masked everywhere, rates and scales 1."""
+    dtype of its keys: masked everywhere, rates and scales 1. att_w: the
+    decoder's `att_w` (SlotDecoder's attention_weights, None for
+    PlainSlotDecoder); with it the inputs also keep the folded K/V the
+    kernel reads."""
     kv = [p for p in fi["projected_kv"] if p is not None]
     E = kv[0][0].shape[-1]
     z = dict(device=kv[0][0].device, dtype=kv[0][0].dtype)
@@ -597,20 +979,27 @@ def slot_inputs(fi, n_slots, tk):
         torch.zeros(len(bias), n_slots, max(b.shape[-1] for b in bias),
                     **z) if bias else None,
         None if se is None else torch.zeros(n_slots, se.shape[-1], **z),
-        torch.ones(n_slots, **z))
+        torch.ones(n_slots, **z), att_w,
+        None if att_w is None else torch.zeros(
+            len(kv), 2, n_slots, tk, att_w.shape[-1], **z))
 
 
 def write_slot_row(si, b, fi, mask, ctx_scale):
     """Row b of si <- the batch-1 inputs fi with its (1, tk) padding mask
     (K/V and mask right-padded to si's text length, masked there) and the
     context scale ctx_scale, a float rounded to f32 as the kernel's scalar
-    is. In place."""
+    is; the row's folded K/V too, when si keeps them. In place."""
     tk = mask.shape[1]
     kv = [p for p in fi["projected_kv"] if p is not None]
     for i, (k, v) in enumerate(kv):
         si.kv[i, 0, b, :tk] = k[0]
         si.kv[i, 1, b, :tk] = v[0]
         si.kv[i, :, b, tk:] = 0.0
+    if si.kvf is not None:
+        one = slice(b, b + 1)
+        si.kvf[:, :, one, :tk] = attention_operands(si.att_w,
+                                                    si.kv[:, :, one, :tk])
+        si.kvf[:, :, b, tk:] = 0.0
     si.addmask[b] = MASK
     si.addmask[b, :tk] = torch.where(mask[0], MASK, 0.0)
     if si.w_query is not None:
@@ -630,57 +1019,36 @@ def grow_slot_inputs(si, tk):
     if grow <= 0:
         raise ValueError("text length %d does not grow %d"
                          % (tk, si.addmask.shape[1]))
-    kv = torch.cat([si.kv, si.kv.new_zeros(si.kv.shape[:3] + (grow,)
-                                           + si.kv.shape[4:])], dim=3)
+
+    def pad(t):
+        return None if t is None else torch.cat(
+            [t, t.new_zeros(t.shape[:3] + (grow,) + t.shape[4:])], dim=3)
     addmask = torch.cat([si.addmask, si.addmask.new_full(
         (si.addmask.shape[0], grow), MASK)], dim=1)
-    return si._replace(kv=kv, addmask=addmask)
+    return si._replace(kv=pad(si.kv), kvf=pad(si.kvf), addmask=addmask)
 
 
-class SlotDecoder(_Decoder):
+class SlotDecoder(_KernelDecoder):
     """Kernel B1 in its serving modes over a batch of n_slots rows: the
-    plan with folded weights is built once; `launch` takes the caller's
-    SlotInputs, reads each row's position-table row from the row's own
-    decoded count (the whole table: raw angles with the row's rate, or
+    packed plan is built once per parameter set; `launch` takes the
+    caller's SlotInputs, reads each row's position-table row from the row's
+    own decoded count (the whole table: raw angles with the row's rate, or
     finished encodings), scales each row's context by its own scale, and
-    advances the counts in the kernel. The ring placement is recomputed
-    whenever the inputs' text length changes (Tk is part of the shared-
-    memory layout); the carry keeps its logical-order rings across it.
-    `smem_budget`: bytes of shared memory for the placement, None for the
-    device's limit per block (the card tests lower it)."""
+    advances the counts in the kernel. The attention scratch follows the
+    inputs' text length; the carry keeps its logical-order rings across a
+    growth. `smem_budget` and `grid` as for FusedDecoder."""
 
-    def __init__(self, params, cfg, n_slots, device):
-        device = torch.device(device)
-        if device.type != "cuda":
-            raise ValueError("SlotDecoder runs on CUDA tensors only (got %s)"
-                             % device)
-        self.device, self.dtype = device, torch.float32
-        self.plan = build_plan(params, cfg)
-        self.B = n_slots
-        self.C = state_dim(cfg)
-        self.out_dim = cfg.in_dim * cfg.r
-        self.n_la = max(self.plan.n_att, 1)
-        self.ring_floats = sum(r * c for r, c, _ in self.plan.buffers)
-        self.sp_width = max(self.plan.sp_widths or (0,))
+    def __init__(self, params, cfg, n_slots, device, smem_budget=None,
+                 grid=None):
+        self._setup(params, cfg, n_slots, torch.device(device), smem_budget,
+                    grid)
         self.fpe_raw = family(cfg) is dv3
         self.table = params["embed_query_positions"]["w"].float() \
             .contiguous()
         _check(self.table, "position table", (self.table.shape[0], self.C),
-               torch.float32, device)
-        if self.plan.act_dim > 4 * _THREADS:
-            raise ValueError("fused_decode: widths above %d are not supported"
-                             % (4 * _THREADS))
-        self.smem_budget = None
+               torch.float32, self.device)
+        self.att_w = self.layout.att_w
         self.tk = self.E = None
-
-    def _place(self, tk, E):
-        self.bufs, self.ring_smem, self.scratch_floats = _placement(
-            self.plan, self.C, E, tk, self.n_la, self.device,
-            self.smem_budget)
-        self.scratch = (torch.empty(self.B, self.scratch_floats,
-                                    device=self.device)
-                        if self.scratch_floats else None)
-        self.tk, self.E = tk, E
 
     def zero_carry(self):
         z = dict(device=self.device)
@@ -698,10 +1066,10 @@ class SlotDecoder(_Decoder):
     def positions(self, carry):
         return carry.pos
 
-    def launch(self, inputs, carry, outputs, steps):
+    def launch(self, inputs, carry, outputs, steps, trace=None):
         """Run `steps` frames of every slot from `carry` into frames 0 ..
         steps-1 of `outputs` (new_outputs(steps, Tk)); updates `carry` in
-        place, its positions included."""
+        place, its positions included. trace: as for FusedDecoder."""
         f32, i32, dev = torch.float32, torch.int32, self.device
         p, S = self.plan, self.B
         n_att, tk, E = (inputs.kv.shape[0], inputs.kv.shape[3],
@@ -709,6 +1077,11 @@ class SlotDecoder(_Decoder):
         if n_att != p.n_att:
             raise ValueError("need %d K/V pairs, got %d" % (p.n_att, n_att))
         _check(inputs.kv, "kv", (n_att, 2, S, tk, E), f32, dev)
+        if inputs.kvf is None or inputs.att_w is not self.att_w:
+            raise ValueError("SlotDecoder: the inputs keep no K/V folded "
+                             "with this decoder's weights (slot_inputs(..., "
+                             "att_w=decoder.att_w))")
+        _check(inputs.kvf, "kvf", (n_att, 2, S, tk, self.C + 1), f32, dev)
         _check(inputs.addmask, "addmask", (S, tk), f32, dev)
         _check(inputs.ctx_scale, "ctx_scale", (S,), f32, dev)
         if self.fpe_raw:
@@ -726,28 +1099,19 @@ class SlotDecoder(_Decoder):
         _check(align, "alignments", (S, steps, tk), f32, dev)
         _check(done, "done", (S, steps), f32, dev)
         _check(dstate, "decoder_states", (S, steps, self.C), f32, dev)
-        if (tk, E) != (self.tk, self.E):
-            self._place(tk, E)
-        args = _Args(
-            p.ops.data_ptr(), self.bufs.data_ptr(), p.weights.data_ptr(),
-            self.table.data_ptr(),
-            _ptr(inputs.w_query if self.fpe_raw else None),
-            inputs.addmask.data_ptr(), inputs.kv.data_ptr(),
-            _ptr(inputs.speaker_bias if p.sp_widths else None),
-            carry.prev.data_ptr(), carry.last_attended.data_ptr(),
-            carry.ring.data_ptr(), _ptr(self.scratch), out.data_ptr(),
-            align.data_ptr(), done.data_ptr(), dstate.data_ptr(),
-            p.ops.shape[0], len(p.buffers), S, tk, E, self.C, self.out_dim,
-            p.n_att, self.n_la, self.ring_floats, self.ring_smem,
-            self.scratch_floats, self.sp_width, int(self.fpe_raw), steps, 0,
-            steps, p.last[0], p.last[1], p.fc[0], p.fc[1], p.act_dim,
-            p.cat_dim, 1.0, carry.pos.data_ptr(),
-            inputs.ctx_scale.data_ptr(), self.table.shape[0])
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = KERNEL.lib.dv3_fused_decode(ctypes.byref(args), stream,
-                                         dev.index or 0)
-        KERNEL.launched("slots")
-        KERNEL.check(rc, "fused_decode launch (slots)")
+        self.tk, self.E = tk, E
+        self._launch("slots", dict(
+            fpe=self.table.data_ptr(),
+            wq=_ptr(inputs.w_query if self.fpe_raw else None),
+            addmask=inputs.addmask.data_ptr(), kv=inputs.kvf.data_ptr(),
+            sp=_ptr(inputs.speaker_bias if p.sp_widths else None),
+            row_scale=inputs.ctx_scale.data_ptr(), prev=carry.prev.data_ptr(),
+            la=carry.last_attended.data_ptr(), ring=carry.ring.data_ptr(),
+            att=self._scores(tk).data_ptr(), out=out.data_ptr(),
+            align=align.data_ptr(), done=done.data_ptr(),
+            dstate=dstate.data_ptr(), pos=carry.pos.data_ptr()), dict(
+            Tk=tk, fpe_raw=int(self.fpe_raw), T_total=steps, t0=0,
+            steps=steps, fpe_rows=self.table.shape[0], ctx_scale=1.0), trace)
 
 
 class PlainSlotDecoder(_Decoder):
@@ -769,6 +1133,7 @@ class PlainSlotDecoder(_Decoder):
                     [i for i, s in enumerate(cfg.attention_specs)
                      if s is not None])
         self.n_layers = 1 if self.fam is nk else len(cfg.attention_specs)
+        self.att_w = None       # the plain step reads the unfolded K/V
 
     def zero_carry(self):
         state = self.fam.decoder_init_state(self.cfg, self.B, self.device)
@@ -788,10 +1153,9 @@ class PlainSlotDecoder(_Decoder):
         """Run `steps` frames of every slot from `carry` into frames 0 ..
         steps-1 of `outputs`; writes the carry's rows in place.
 
-        One row at a time, as the kernel runs each row in a thread block
-        of its own: a row's numbers then do not depend on the other slots,
-        and a slot equals a fresh batch-1 stream of the plain version bit
-        for bit (a batched matmul sums in an order that depends on the
+        One row at a time: a row's numbers then do not depend on the other
+        slots, and a slot equals a fresh batch-1 stream of the plain version
+        bit for bit (a batched matmul sums in an order that depends on the
         batch, and the emission's Griffin-Lim amplifies one-ulp
         differences through its bf16 operands)."""
         for b in range(self.B):

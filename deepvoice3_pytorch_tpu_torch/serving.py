@@ -534,7 +534,8 @@ class ContinuousBatcher:
                                  self._upload(pos), self._upload(length),
                                  spk)
         if self._inputs is None:
-            self._inputs = fd.slot_inputs(fi, self.n_slots, self._tk)
+            self._inputs = fd.slot_inputs(fi, self.n_slots, self._tk,
+                                          self.dec.att_w)
             self._carry = self.dec.zero_carry()
         # the expression of the kernel's scalar scale at a fresh stream's
         # Tk, so the slot's scale equals a fresh stream's bit for bit

@@ -155,27 +155,28 @@ def test_fused_decode_families_match_plain(dev, name, chunk, masked,
 
 @pytest.mark.parametrize("name", ["nyanko", "deepvoice3_multispeaker"])
 def test_fused_decode_ring_placement_in_device_memory(dev, name):
-    """Ring buffers placed in the per-row scratch (a budget that holds half
-    of them, and one that holds none) give the very same frames and carry
-    as all of them in shared memory, over a carry hand-off; a budget below
-    the plan's fixed part raises."""
+    """The ring buffers live in device memory, and the weights' placement
+    follows the shared-memory budget: every slice in shared memory, about
+    half of them, and none give the very same frames and carry, over a
+    carry hand-off; a budget below the kernel's fixed part raises."""
     cfg, pd, fi, lengths = _family_decoder(dev, name)
     mask = core.get_mask_from_lengths(lengths, 12)
     init = torch.zeros(3, 16, device=dev)
     full = fd.FusedDecoder(pd, cfg.decoder, fi, mask, 10)
-    assert full.scratch_floats == 0
-    p = full.plan
-    fixed = fd.smem_floats(p.act_dim, p.cat_dim, full.C, full.E, full.tk,
-                           len(p.buffers), full.n_la)
+    lay = full.layout
+    assert lay.resident == lay.per_block and full.scratch.shape == (
+        3, full.scratch_floats)
+    assert full.scratch_floats == full.ring_floats + sum(
+        c for _, c, _ in full.plan.buffers)     # a slot more a buffer
+    fixed = 4 * fd.b1_smem_floats(lay.meta, 0, lay.max_ncp)
     runs = []
-    for ring_budget in (None, full.ring_floats // 2, 0):
-        dec = full if ring_budget is None else fd.FusedDecoder(
-            pd, cfg.decoder, fi, mask, 10,
-            smem_budget=4 * (fixed + ring_budget))
-        if ring_budget == 0:
-            assert dec.ring_smem == 0
-        if ring_budget:
-            assert 0 < dec.scratch_floats < dec.ring_floats
+    for budget in (None, fixed + 2 * lay.per_block, fixed):
+        dec = full if budget is None else fd.FusedDecoder(
+            pd, cfg.decoder, fi, mask, 10, smem_budget=budget)
+        if budget == fixed:
+            assert dec.layout.resident == 0
+        elif budget is not None:
+            assert 0 < dec.layout.resident < dec.layout.per_block
         carry, outs = dec.zero_carry(init), dec.new_outputs(10)
         dec.launch(carry, outs, 0, 6)
         dec.launch(carry, outs, 6, 4)
@@ -185,7 +186,7 @@ def test_fused_decode_ring_placement_in_device_memory(dev, name):
             assert torch.equal(a, b)
     with pytest.raises(ValueError):
         fd.FusedDecoder(pd, cfg.decoder, fi, mask, 10,
-                        smem_budget=4 * fixed - 4)
+                        smem_budget=fixed - 4)
 
 
 @pytest.mark.parametrize("preset,off_chip", [
@@ -193,10 +194,12 @@ def test_fused_decode_ring_placement_in_device_memory(dev, name):
     ("deepvoice3_ljspeech", False)])
 def test_fused_decode_preset_widths(dev, preset, off_chip):
     """Each preset's decoder at full width, B = 2, Tk = 40, 12 steps,
-    kernel against plain: nyanko's 256 KiB of ring buffers a row leave
-    shared memory in part, VCTK's and LJSpeech's stay in it. Bar: 3x the
-    plain f32 decode's own drift from a float64 one (chip_smoke.py's B1
-    bar), last_attended exact."""
+    kernel against plain: every preset's weights stay in shared memory on
+    a grid of one block an SM; nyanko's also on a grid of 114 blocks, where
+    its 27.7 MB of folded weights leave shared memory in part (the rest is
+    read from device memory each step). Bar: 3x the plain f32 decode's own
+    drift from a float64 one (chip_smoke.py's B1 bar), last_attended
+    exact."""
     import copy
     import json
     import os
@@ -222,12 +225,15 @@ def test_fused_decode_preset_widths(dev, preset, off_chip):
     fam = cfg.family
     fi = fam.fused_decode_inputs(pd, cfg.decoder, enc, pos, 12,
                                  speaker_embed=se)
-    dec = fd.FusedDecoder(pd, cfg.decoder, fi, None, 12)
-    assert (dec.scratch_floats > 0) == off_chip, json.dumps(
-        [dec.ring_smem, dec.scratch_floats])
+    dec = fd.FusedDecoder(pd, cfg.decoder, fi, None, 12,
+                          grid=114 if off_chip else None)
+    lay = dec.layout
+    assert (lay.resident < lay.per_block) == off_chip, json.dumps(
+        [lay.grid, lay.resident, lay.per_block])
     init = torch.zeros(B, dec.out_dim, device=dev)
-    got = fd.fused_decode(pd, cfg.decoder, fi, None, init, 12, 2,
-                          early_exit=False)
+    carry, outs = dec.zero_carry(init), dec.new_outputs(12)
+    dec.launch(carry, outs, 0, 12)
+    got = fd.FusedDecodeOut(*outs, 12, dec.last_attended(carry))
     want = fd.fused_decode_plain(pd, cfg.decoder, fi, None, init, 12, 2,
                                  early_exit=False)
     pd64 = copy.deepcopy(pd).double()
@@ -261,8 +267,9 @@ def test_fused_decode_carry_resumes(dev):
         assert torch.equal(a, b)
 
 
-def _slot_inputs(fi, lengths, Tk, scales):
-    """SlotInputs with row b = row b of the batched inputs fi."""
+def _slot_inputs(fi, lengths, Tk, scales, att_w):
+    """SlotInputs with row b = row b of the batched inputs fi, folded with
+    a kernel decoder's att_w."""
     mask = core.get_mask_from_lengths(lengths, Tk)
     B = mask.shape[0]
 
@@ -276,24 +283,26 @@ def _slot_inputs(fi, lengths, Tk, scales):
             speaker_embed=(None if fi.get("speaker_embed") is None
                            else fi["speaker_embed"][one]))
 
-    si = fd.slot_inputs(row(0), B, Tk)
+    si = fd.slot_inputs(row(0), B, Tk, att_w)
     for b in range(B):
         fd.write_slot_row(si, b, row(b), mask[b:b + 1], scales[b])
     return si
 
 
-def _slot_pair(dev, name, B=4, Tk=12):
+def _slot_pair(dev, name, B=4, Tk=12, kern_kw=None):
     """Kernel and plain slot decoders over one family's tiny decoder, slot
     inputs at their own scales, both carries at positions (0, 5, 30, 60):
-    the last row runs past the 64-row table within a launch."""
+    the last row runs past the 64-row table within a launch. kern_kw: more
+    arguments of the kernel's SlotDecoder."""
     if name == "deepvoice3":
         cfg, pd, enc, pos, lengths = _decoder(dev, B=B, Tk=Tk)
         fi = dv3.fused_decode_inputs(pd, cfg.decoder, enc, pos)
     else:
         cfg, pd, fi, lengths = _family_decoder(dev, name, B=B, Tk=Tk)
+    kern = fd.SlotDecoder(pd, cfg.decoder, B, dev, **(kern_kw or {}))
     si = _slot_inputs(fi, lengths, Tk,
-                      [n * (1.0 / n) ** 0.5 for n in (8, 12, 16, 64)])
-    kern = fd.SlotDecoder(pd, cfg.decoder, B, dev)
+                      [n * (1.0 / n) ** 0.5 for n in (8, 12, 16, 64)],
+                      kern.att_w)
     plain = fd.PlainSlotDecoder(pd, cfg.decoder, B, dev)
     carries = [kern.zero_carry(), plain.zero_carry()]
     local = torch.tensor([0, 5, 30, 60], device=dev)
@@ -338,23 +347,102 @@ def test_slot_decoder_kernel_matches_plain(dev, name):
         fd.grow_slot_inputs(si, 20)
 
 
+def test_slot_decoder_refuses_inputs_folded_for_other_weights(dev):
+    """The kernel reads the K/V folded at admission: inputs kept for the
+    plain decoder (no fold) or folded by another decoder are refused."""
+    kern, _, carries, si, _ = _slot_pair(dev, "deepvoice3")
+    outs = kern.new_outputs(2, si.addmask.shape[1])
+    cfg1, pd1 = _decoder(dev, B=4, Tk=12, seed=1)[:2]
+    other = fd.SlotDecoder(pd1, cfg1.decoder, 4, dev)
+    for bad in (si._replace(att_w=None, kvf=None),
+                si._replace(att_w=other.att_w)):
+        with pytest.raises(ValueError):
+            kern.launch(bad, carries[0], outs, 2)
+    kern.launch(si, carries[0], outs, 2)
+
+
 @pytest.mark.parametrize("name", ["nyanko", "deepvoice3_multispeaker"])
 def test_slot_decoder_ring_placement_follows_the_bucket(dev, name):
-    """A shared-memory budget that holds every ring buffer at Tk = 12 but
-    not at Tk = 44 (two Tk-long score rows grow the fixed part): the
-    growth moves buffers to device memory between two launches, and the
-    frames still equal the plain decode's."""
-    kern, plain, carries, si, _ = _slot_pair(dev, name)
-    p = kern.plan
-    budget = 4 * (fd.smem_floats(p.act_dim, p.cat_dim, kern.C,
-                                 si.kv.shape[-1], 12, len(p.buffers),
-                                 kern.n_la) + kern.ring_floats)
-    kern.smem_budget = budget
-    _slot_launch(kern, plain, carries, si, 4)
-    assert kern.scratch_floats == 0
+    """A slot decoder on a grid of 8 blocks whose shared-memory budget
+    keeps part of the weights: across a text-bucket growth (the attention
+    scratch follows the new Tk) the frames still equal the plain
+    decode's."""
+    cfg, pd = _family_decoder(dev, name, B=4)[:2]
+    lay = fd.SlotDecoder(pd, cfg.decoder, 4, dev, grid=8).layout
+    budget = 4 * (fd.b1_smem_floats(lay.meta, 0, lay.max_ncp)
+                  + lay.per_block // 2)
+    small, plain, carries, si, _ = _slot_pair(
+        dev, name, kern_kw=dict(grid=8, smem_budget=budget))
+    lay = small.layout
+    assert lay.grid == 8 and 0 < lay.resident < lay.per_block
+    _slot_launch(small, plain, carries, si, 4)
     si = fd.grow_slot_inputs(si, 44)
-    _slot_launch(kern, plain, carries, si, 4)
-    assert 0 < kern.scratch_floats <= kern.ring_floats
+    _slot_launch(small, plain, carries, si, 4)
+    assert small.tk == 44 and small.att.shape[2] == 44
+
+
+@pytest.mark.parametrize("B", [1, 8, 32, 33])
+def test_fused_decode_batch_sizes(dev, B):
+    """B = 1, 8, 32 and 33 rows (33: a row pair split, and a second pass
+    over the rows of a stage), width 64, kernel against plain; two runs
+    bit-equal."""
+    cfg, pd, enc, pos, lengths = _decoder(dev, width=64, B=B, Tk=24)
+    fi = dv3.fused_decode_inputs(pd, cfg.decoder, enc, pos)
+    mask = core.get_mask_from_lengths(lengths, 24)
+    args = (pd, cfg.decoder, fi, mask, torch.zeros(B, 16, device=dev), 14,
+            2)
+    got = fd.fused_decode(*args, early_exit=False, chunk=8)
+    again = fd.fused_decode(*args, early_exit=False, chunk=8)
+    _close(got, fd.fused_decode_plain(*args, early_exit=False, chunk=8),
+           1e-4)
+    for name in ("outputs", "alignments", "done", "decoder_states"):
+        assert torch.equal(getattr(got, name), getattr(again, name))
+
+
+@pytest.mark.parametrize("monotonic", [True, False])
+def test_fused_decode_longest_text(dev, monotonic):
+    """Tk = 511, the longest text a 512-row key position table allows,
+    monotonic (window over a few keys) and not (every key)."""
+    cfg, pd, enc, pos, lengths = _decoder(dev, width=32, Tk=511, B=2,
+                                          monotonic=monotonic)
+    assert pd["embed_keys_positions"]["w"].shape[0] == 512
+    fi = dv3.fused_decode_inputs(pd, cfg.decoder, enc, pos)
+    mask = core.get_mask_from_lengths(lengths, 511)
+    args = (pd, cfg.decoder, fi, mask, torch.zeros(2, 16, device=dev), 9, 2)
+    _close(fd.fused_decode(*args, early_exit=False),
+           fd.fused_decode_plain(*args, early_exit=False), 1e-4)
+
+
+@pytest.mark.parametrize("grid", [8, 114])
+def test_fused_decode_small_grid_carry(dev, grid):
+    """A grid smaller than the SM count (8 blocks: many column quads a
+    block, weights read from device memory; 114 blocks), over a carry
+    hand-off, against the plain decode."""
+    cfg, pd, enc, pos, lengths = _decoder(dev, width=64, B=5, Tk=16)
+    fi = dv3.fused_decode_inputs(pd, cfg.decoder, enc, pos)
+    mask = core.get_mask_from_lengths(lengths, 16)
+    init = torch.zeros(5, 16, device=dev)
+    dec = fd.FusedDecoder(pd, cfg.decoder, fi, mask, 10, grid=grid)
+    assert dec.layout.grid == grid
+    carry, outs = dec.zero_carry(init), dec.new_outputs(10)
+    dec.launch(carry, outs, 0, 3)
+    dec.launch(carry, outs, 3, 7)
+    got = fd.FusedDecodeOut(*outs, 10, dec.last_attended(carry))
+    _close(got, fd.fused_decode_plain(pd, cfg.decoder, fi, mask, init, 10, 2,
+                                      early_exit=False), 1e-4)
+
+
+def test_fused_decode_grid_not_coresident_raises(dev):
+    """A grid the card cannot hold at once (more than four 512-thread
+    blocks an SM) fails at launch with the CUDA error, never runs."""
+    cfg, pd, enc, pos, lengths = _decoder(dev)
+    fi = dv3.fused_decode_inputs(pd, cfg.decoder, enc, pos)
+    sms = fd.device_info(dev)[0]
+    dec = fd.FusedDecoder(pd, cfg.decoder, fi, None, 4, grid=4 * sms + 1)
+    carry, outs = dec.zero_carry(torch.zeros(3, 16, device=dev)), \
+        dec.new_outputs(4)
+    with pytest.raises(RuntimeError, match="fused_decode launch"):
+        dec.launch(carry, outs, 0, 4)
 
 
 def test_tiny_batcher_gpu_matches_cpu(dev):

@@ -239,9 +239,11 @@ def test_chunked_early_exit_matches_jax(chunk, fc_bias):
 
 def test_plan_ops_and_ring_placement():
     """The nyanko plan: highway ops with their ring buffers, SAVE_Q before
-    the attention and LINEAR2 after it; at the preset's widths its ring
-    buffers (256 rows x 256) exceed a block's shared memory, so placement
-    moves the longest ones to the device-memory scratch."""
+    the attention and LINEAR2 after it. Kernel B1 keeps every row's ring
+    buffers in device memory (at the preset's widths they take 256 rows x
+    256 a row, more than a block's shared memory): each highway stage reads
+    its own buffer, the attention reads Q plus the position rows, and
+    LINEAR2 reads [R, Q]."""
     _, cfg_t = tiny_configs("nyanko")
     params = model_init(cfg_t, torch.Generator().manual_seed(0),
                         device="cpu")
@@ -254,21 +256,24 @@ def test_plan_ops_and_ring_placement():
     assert [r for r, _, _ in plan.buffers] == [
         2, 6, 18, 54, 2, 6, 18, 54, 6, 6, 2, 6, 18, 54, 2, 2]
 
-    rows = [r for r, _, _ in plan.buffers]
-    bufs = [(r, 256, 0) for r in rows]
-    budget = 232448 // 4 - t_fd.smem_floats(512, 768, 256, 256, 96, 16, 1)
-    placed, smem, scratch = t_fd.place_rings(bufs, budget)
-    assert smem <= budget and smem + scratch == 256 * 256 and scratch > 0
-    off_chip = [rows[i] for i, (_, sm) in enumerate(placed) if not sm]
-    assert off_chip and all(r == 54 for r in off_chip)
-    # offsets tile each place without overlap
-    for where in (0, 1):
-        spans = sorted((off, off + rows[i] * 256)
-                       for i, (off, sm) in enumerate(placed) if sm == where)
-        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
-    # the LJSpeech preset's 90 rows stay on chip
-    lj = [(r, 256, 0) for r in (2, 6, 2, 6, 18, 54, 2)]
-    assert t_fd.place_rings(lj, budget)[2] == 0
+    C = cfg_t.decoder.channels
+    stages, widths = t_fd.b1_stages(plan, C,
+                                    cfg_t.decoder.in_dim * cfg_t.decoder.r)
+    words = [st.words for st in stages]
+    hw = [w for w in words if w[t_fd.S_EPI] == t_fd.E_HW
+          and w[t_fd.S_KIND] == t_fd.K_MV]
+    assert [w[t_fd.S_RING] for w in hw] == list(range(16))
+    # ring buffers tile the carry row without overlap, in buffer order
+    spans = [(off, off + r * c) for r, c, off in plan.buffers]
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    i_q = next(i for i, w in enumerate(words) if w[t_fd.S_KIND] == t_fd.K_ATT)
+    l2 = next(w for w in words if w[t_fd.S_IN2] >= 0)
+    # the stage before the attention writes Q and Q + the position rows
+    assert words[i_q - 1][t_fd.S_QOUT] == words[i_q][t_fd.S_IN]
+    assert words[i_q - 1][t_fd.S_OUT] == l2[t_fd.S_IN2]
+    assert l2[t_fd.S_K] == 2 * C and widths[l2[t_fd.S_IN]] == C
+    # the preset's 16 buffers of 256 channels: 256 KiB a row
+    assert 4 * 256 * sum(r for r, _, _ in plan.buffers) == 256 * 1024
 
 
 # ---------------------------------------------------------------------------
