@@ -141,13 +141,43 @@ Phases, one line each; any failure exits non-zero before the result lines:
      kernel (torch.profiler) over three steps of each mode; then twenty
      steps on a synthetic-corpus batch, whose loss must be finite and fall.
      Fails unless B3's four fast entries (fwd/wgrad, pipe/wgmma) were
-     launched in the kernel-mode steps, and if its ragged route was.
+     launched in the kernel-mode steps, and if its ragged route was;
+ 16. the command lines (phases `cli_*`), each run as a user would run it,
+     `python -m deepvoice3_pytorch_tpu_torch.cli.<name>` in a subprocess
+     from the checkout's root, on the card, over a corpus written to a
+     temporary directory (`cli_corpus`: utils/synthcorpus's 48 sentences,
+     features from batch_features on the card, the .npy pairs, train.txt
+     and the DSP stamp; key_position_rate from the corpus as bench.py sets
+     it): `cli_train` trains the LJSpeech preset at full width (B = 16
+     f32, kernel conv mode) 40 steps with async checkpoints at 20 and 40
+     and an eval at 40 (every loss finite, the last below the first, 6
+     eval wavs by B1 + B2, B3 off its ragged route; steady steps/s, the
+     sync save's ms, the async save's stall, file sizes); `cli_resume`
+     resumes the step-20 file for one step (its loss within 1e-5 relative
+     of the uninterrupted run's step 21; the file's parameters and both
+     Adam moments loaded onto the card bit for bit; load ms);
+     `cli_synthesis` synthesizes the 32 sentences from the step-40 file at
+     B = 32 after a warm-up (32 wavs, decoded steps equal to an in-process
+     tts_batch on the same loaded parameters; wall ms, RTF), then 2 of them
+     with --device cpu (decoded steps exact, the card's audio within 1.05x
+     the CPU's spectral convergence, each written wav taken at its best
+     gain) and 1 with --stream (first-chunk latency); `cli_serve` starts
+     cli.serve --slots 8 on a free port of 127.0.0.1, sends 3 requests
+     (HTTP 200, a WAV header, PCM; the client's ms to the first bytes) and
+     stops it with SIGINT; `cli_builders` trains the nyanko and VCTK
+     presets 5 steps each (VCTK on a 5-column train.txt, sentence i by
+     speaker (7 i) % 108) and synthesizes 8 sentences from each file
+     (VCTK as speaker 7). Each command line's launch counts (its
+     --summary-json, or serve's last line) are summed into the `cli` line,
+     which fails unless B1 (both modes), B2 (both modes) and B3 launched,
+     and into the kernels line.
 The line before the last is the kernels' JSON record (B1's launches
 summed over the three builders' main paths and the serving paths, its
 worst error over the four B1 phases; its times are the LJSpeech phase's;
 `fused_decode_slots` is the serving mode alone: its launches on the
 serving paths, B1_serve's error and times; `griffin_lim_stream` counts
-its launches on the stream and serving paths); the last line is
+its launches on the stream and serving paths; every launch count adds
+the command lines'); the last line is
 {"ok": true, "device": {...}}. Each record's "timing" names how its "ms"
 and "plain_ms" were taken: "host-paced" (cuda_ms: events around calls as
 the host issues them) or "device" (device_ms: the calls queued behind a
@@ -182,6 +212,10 @@ one's, in the same turns, with this script's timers; nothing else runs.
     python3 chip_smoke.py --b2-only
 
 builds the kernels and runs B2's phases (6 to 8) alone.
+
+    python3 chip_smoke.py --cli-only
+
+builds the kernels and runs the command lines' phases (16) alone.
 """
 
 import copy
@@ -3221,6 +3255,485 @@ def b2_turns(parent, card, json_out):
             json.dump({"card": card, "b2_turns": turns}, f, indent=1)
 
 
+# ---------------------------------------------------------------------------
+# the command lines (deepvoice3_pytorch_tpu_torch/cli), run as a user would
+# ---------------------------------------------------------------------------
+
+CLI = "deepvoice3_pytorch_tpu_torch.cli."
+
+
+def run_cli(repo, name, args, timeout=600):
+    """One command line as a subprocess from the checkout's root; fails the
+    smoke (with the tail of its output) on a non-zero exit. Returns its
+    stdout."""
+    cmd = [sys.executable, "-m", CLI + name] + [str(a) for a in args]
+    t = time.time()
+    try:
+        r = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                           timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail("cli.%s timed out after %d s" % (name, timeout))
+    if r.returncode != 0:
+        fail("cli.%s exited %d after %.1f s:\n%s\n%s" % (
+            name, r.returncode, time.time() - t, r.stdout[-3000:],
+            r.stderr[-3000:]))
+    return r.stdout
+
+
+def write_corpus(torch, pkg, hp, root, dev, speakers=None):
+    """The synthetic language's 48 sentences (utils/synthcorpus,
+    make_sentences(48, seed=3)) as a preprocessed corpus under `root`:
+    features from batch_features on `dev`, the .npy pairs, train.txt
+    (with a fifth column of speakers (7 i) % n for a multi-speaker corpus,
+    the audio rendered by that speaker) and the DSP stamp. Returns the
+    sentences."""
+    from deepvoice3_pytorch_tpu_torch.training import dataset
+    from deepvoice3_pytorch_tpu_torch.utils import synthcorpus as sc
+
+    texts = sc.make_sentences(48, seed=3)
+    spk = None if speakers is None else [(7 * i) % speakers
+                                         for i in range(len(texts))]
+    wavs = [sc.synth_wav(t, hp.sample_rate, hp.hop_size,
+                         speaker_id=None if spk is None else spk[i])
+            for i, t in enumerate(texts)]
+    feats = pkg["AudioProcessor"](hp).batch_features(wavs, device=dev)
+    os.makedirs(root, exist_ok=True)
+    lines = []
+    for i, (text, (spec, mel)) in enumerate(zip(texts, feats)):
+        names = ["synth-spec-%05d.npy" % i, "synth-mel-%05d.npy" % i]
+        np.save(os.path.join(root, names[0]), np.asarray(spec, np.float32))
+        np.save(os.path.join(root, names[1]), np.asarray(mel, np.float32))
+        cols = names + [str(len(mel)), text]
+        if spk is not None:
+            cols.append(str(spk[i]))
+        lines.append("|".join(cols))
+    with open(os.path.join(root, "train.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    dataset.write_dsp_stamp(root, hp)
+    return texts
+
+
+def cli_launches(summary):
+    """{kernel: launches, by entry} of a command line's summary."""
+    return {k: v["by_entry"] for k, v in summary["launches"].items()}
+
+
+def sc_gain(torch, ap, wav, lin):
+    """Spectral convergence of a written waveform against the magnitudes
+    Griffin-Lim was given for the normalized linear frames `lin`, after
+    the gain that fits it best: a written wav is scaled to its peak."""
+    from deepvoice3_pytorch_tpu_torch.dsp import stft as dsp
+
+    S = ap._denorm_pow(torch.from_numpy(np.asarray(lin, np.float32)))
+    w = preemphasis(torch, np.asarray(wav, np.float32), ap.preemphasis_coef)
+    win = torch.from_numpy(dsp.lws_hann_window(ap.fft_size, ap.hop_size))
+    M = torch.abs(dsp.stft(dsp.lws_pad(w, ap.fft_size, ap.hop_size),
+                           ap.fft_size, ap.hop_size, win))[:S.shape[0]]
+    gain = float((M * S).sum() / (M * M).sum())
+    return float(torch.linalg.norm(gain * M - S) / torch.linalg.norm(S))
+
+
+def serve_cli(repo, ckpt_path, preset, hp_str, texts, device="cuda",
+              timeout=300):
+    """cli.serve on 127.0.0.1 (a free port) with 8 slots; one request per
+    text, one after another, from this process. Returns (rows, launches by
+    kernel); stops the server with SIGINT, and kills it on any failure."""
+    import http.client
+    import signal
+    import threading
+    import urllib.parse
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", CLI + "serve", ckpt_path, "--preset", preset,
+         "--hparams", hp_str, "--slots", "8", "--port", "0",
+         "--max-decoder-steps", "200", "--device", device], cwd=repo,
+        stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    lines, errs = [], []
+    up = threading.Event()
+
+    def read_out():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving on"):
+                up.set()
+
+    def read_err():
+        errs.extend(proc.stderr)
+
+    readers = [threading.Thread(target=read_out, daemon=True),
+               threading.Thread(target=read_err, daemon=True)]
+    for t in readers:
+        t.start()
+    try:
+        deadline = time.time() + timeout
+        while not up.wait(0.5) and proc.poll() is None \
+                and time.time() < deadline:
+            pass
+        if not up.is_set():
+            for t in readers:
+                t.join(timeout=10)
+            fail("cli.serve did not come up in %d s (exit %s):\n%s%s" % (
+                timeout, proc.poll(), "".join(lines)[-2000:],
+                "".join(errs)[-3000:]))
+        port = int([l for l in lines if l.startswith("serving on")][0]
+                   .split(":")[2].split()[0])
+        rows = []
+        for text in texts:
+            conn = http.client.HTTPConnection("127.0.0.1", port,
+                                              timeout=timeout)
+            t0 = time.perf_counter()
+            conn.request("GET", "/tts?" + urllib.parse.urlencode(
+                {"text": text}))
+            resp = conn.getresponse()
+            head = resp.read(44)
+            first_ms = (time.perf_counter() - t0) * 1e3
+            body = head + resp.read()
+            rows.append({"status": resp.status, "first_bytes_ms": first_ms,
+                         "total_ms": (time.perf_counter() - t0) * 1e3,
+                         "wav_header": body[:4] == b"RIFF"
+                         and body[8:12] == b"WAVE",
+                         "pcm_samples": (len(body) - 44) // 2,
+                         "pcm_even": (len(body) - 44) % 2 == 0})
+            conn.close()
+        proc.send_signal(signal.SIGINT)
+        proc.wait(timeout=120)
+        for t in readers:
+            t.join(timeout=10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        fail("cli.serve exited %d:\n%s" % (proc.returncode,
+                                           "".join(errs)[-3000:]))
+    launch = [l for l in lines if l.startswith("kernel launches: ")]
+    if not launch:
+        fail("cli.serve printed no launch counts")
+    counts = json.loads(launch[-1][len("kernel launches: "):])
+    return rows, {k: v["by_entry"] for k, v in counts.items()}
+
+
+def cli_totals(launches):
+    """The command lines' launches summed over their phases, as the kernels
+    line counts them: B1 outside and inside its serving mode, B2's batch
+    route and its streaming modes, B3 by entry and route. Fails unless each
+    of B1, B2 and B3 was launched."""
+    out = {"fused_decode": 0, "fused_decode_slots": 0, "griffin_lim": 0,
+           "griffin_lim_stream": 0, "conv_taps": {}}
+    for per in launches.values():
+        for entry, n in per["fused_decode"].items():
+            out["fused_decode_slots" if entry == "slots"
+                else "fused_decode"] += n
+        for entry, n in per["griffin_lim"].items():
+            out["griffin_lim" if entry == "batch"
+                else "griffin_lim_stream"] += n
+        for entry, n in per["conv_taps"].items():
+            out["conv_taps"][entry] = out["conv_taps"].get(entry, 0) + n
+    if not (out["fused_decode"] and out["fused_decode_slots"]
+            and out["griffin_lim"] and out["griffin_lim_stream"]
+            and sum(out["conv_taps"].values())):
+        fail("B1, B2 (both modes) or B3 was not launched on the command "
+             "lines' paths: %s" % json.dumps(out))
+    return out
+
+
+def cli_phases(torch, pkg, repo, card, dev, device="cuda", extra_hp="",
+               train_steps=40, builder_steps=5):
+    """Phases cli_corpus, cli_train, cli_resume, cli_synthesis, cli_serve
+    and cli_builders: the six command lines' main path at the presets' full
+    width (extra_hp narrows them for a rehearsal on the CPU). Returns
+    (ok, rows, launches: {phase: {kernel: by entry}})."""
+    import shutil
+    import tempfile
+
+    from deepvoice3_pytorch_tpu_torch.training import checkpoint as ckpt
+    from deepvoice3_pytorch_tpu_torch.utils import synthcorpus as sc
+
+    hparams, en = pkg["hparams"], pkg["en"]
+    presets = {k: os.path.join(repo, "presets", k + ".json") for k in
+               ("deepvoice3_ljspeech", "nyanko_ljspeech", "deepvoice3_vctk")}
+    work = tempfile.mkdtemp(prefix="dv3_cli_")
+    ok, rows, launches = True, {}, {}
+    try:
+        # -- corpus ------------------------------------------------------
+        hp = preset_hparams(hparams, repo, "deepvoice3_ljspeech")
+        hp.parse(extra_hp)
+        t = time.time()
+        corpus = os.path.join(work, "ljspeech")
+        texts = write_corpus(torch, pkg, hp, corpus, dev)
+        kpr = sc.mean_frames_per_char(texts, hp.sample_rate, hp.hop_size) \
+            / (hp.downsample_step * hp.outputs_per_step)
+        hp_str = ",".join(s for s in ("key_position_rate=%.4f" % kpr,
+                                      extra_hp) if s)
+        hp.parse(hp_str)
+        phase("cli_corpus", "48 synthetic sentences, features on %s, "
+              "train.txt + .npy + dsp_config.json in %.1f s; "
+              "key_position_rate %.4f" % (dev, time.time() - t, kpr))
+
+        # -- train ---------------------------------------------------------
+        ck_dir = os.path.join(work, "ck")
+        train_hp = hp_str + ",checkpoint_interval=%d,eval_interval=%d" % (
+            train_steps // 2, train_steps)
+        common = ["--preset", presets["deepvoice3_ljspeech"], "--device",
+                  device, "--data-root", corpus]
+        t = time.time()
+        run_cli(repo, "train", common + [
+            "--hparams", train_hp, "--checkpoint-dir", ck_dir,
+            "--max-steps", train_steps, "--async-checkpoint",
+            "--log-event-path", os.path.join(work, "log"),
+            "--summary-json", os.path.join(work, "train.json")])
+        wall = time.time() - t
+        with open(os.path.join(work, "train.json")) as f:
+            tr = json.load(f)
+        losses = tr["losses"]
+        launches["cli_train"] = cli_launches(tr)
+        b3 = launches["cli_train"]["conv_taps"]
+        evals = sorted(os.listdir(os.path.join(ck_dir, "eval")))
+        mid = ckpt.checkpoint_path(ck_dir, train_steps // 2)
+        last = ckpt.checkpoint_path(ck_dir, train_steps)
+        rows["cli_train"] = {
+            "steps": len(losses), "first_loss": losses[0],
+            "last_loss": losses[-1],
+            "steady_steps_per_s": tr.get("steady_steps_per_s"),
+            "sync_save_ms": tr["save_ms"],
+            "async_save_stall_ms": tr["async_stall_ms"],
+            "eval_ms": tr["eval_ms"], "file_bytes": tr["files"],
+            "command_s": wall, "b3_by_route": b3,
+            "b1": launches["cli_train"]["fused_decode"],
+            "b2": launches["cli_train"]["griffin_lim"],
+            "eval_wavs": len(evals)}
+        phase("cli_train", "%s (%s)" % (json.dumps(rows["cli_train"]), card))
+        phase("cli_train", "losses %s" % [round(v, 4) for v in losses])
+        train_ok = (len(losses) == train_steps
+                    and all(np.isfinite(losses)) and losses[-1] < losses[0]
+                    and len(evals) == 6
+                    and sum(launches["cli_train"]["fused_decode"].values())
+                    > 0 and sum(launches["cli_train"]["griffin_lim"]
+                                .values()) > 0
+                    and sum(b3.values()) > 0
+                    and not any(k.endswith("_simple") for k in b3))
+        if not train_ok:
+            fail("cli_train: losses finite and falling, 6 eval wavs by B1 "
+                 "and B2, B3 launched off its ragged route: %s"
+                 % json.dumps(rows["cli_train"]))
+
+        # -- resume ----------------------------------------------------------
+        run_cli(repo, "train", common + [
+            "--hparams", train_hp, "--checkpoint-dir",
+            os.path.join(work, "ck_resume"), "--checkpoint", mid,
+            "--max-steps", train_steps // 2 + 1,
+            "--log-event-path", os.path.join(work, "log"),
+            "--summary-json", os.path.join(work, "resume.json")])
+        with open(os.path.join(work, "resume.json")) as f:
+            rs = json.load(f)
+        launches["cli_resume"] = cli_launches(rs)
+        # the loader on the card: parameters and both Adam moments against
+        # the file's arrays, bit for bit
+        cfg, params = pkg["model_builder"].build_model(hp, en.n_vocab,
+                                                       device=dev)
+        from deepvoice3_pytorch_tpu_torch.training import trainer
+        opt = trainer.make_optimizer(hp, trainer.make_lr_fn(hp))
+        template = trainer.init_train_state(params, opt).opt_state
+        _, opt_state, gstep, _ = ckpt.load_checkpoint(mid, params, template)
+        blob = ckpt._load_blob(mid)
+        names = [k for k, _ in ckpt.jax_order(ckpt.param_tree(params))]
+        saved = {k: v for k, (_, v) in zip(
+            names, ckpt.jax_order(blob["params"]))}
+        n = len(names)
+        mu = dict(zip(names, blob["opt_state"][1:1 + n]))
+        nu = dict(zip(names, blob["opt_state"][1 + n:1 + 2 * n]))
+        sd = params.state_dict()
+        unequal = [k for k in names if not (
+            np.array_equal(sd[k].cpu().numpy(), saved[k])
+            and np.array_equal(opt_state.mu[k].cpu().numpy(), mu[k])
+            and np.array_equal(opt_state.nu[k].cpu().numpy(), nu[k]))]
+        on_card = all(t.device == dev for t in list(sd.values())
+                      + list(opt_state.mu.values()))
+        want = losses[train_steps // 2]
+        got = rs["losses"][0] if rs["losses"] else float("nan")
+        rel = abs(got - want) / abs(want)
+        rows["cli_resume"] = {
+            "step": rs["first_step"], "loss": got, "uninterrupted_loss": want,
+            "rel": rel, "load_ms": rs["load_ms"],
+            "loaded_step": gstep, "tensors_unequal": len(unequal),
+            "on_card": on_card}
+        phase("cli_resume", "%s (bars: step %d's loss 1e-5 relative to the "
+              "uninterrupted run's, %d parameters and both Adam moments "
+              "loaded on the card bit for bit) (%s)" % (
+                  json.dumps(rows["cli_resume"]), train_steps // 2 + 1,
+                  len(names), card))
+        if unequal or not on_card or gstep != train_steps // 2:
+            fail("cli_resume: the step-%d file did not load bit for bit "
+                 "onto the card: %s" % (train_steps // 2, unequal[:5]))
+        if not rel <= 1e-5:
+            ok = False
+            phase("cli_resume", "FAILED: the resumed step's loss is %.3g "
+                  "relative from the uninterrupted run's" % rel)
+
+        # -- synthesis -------------------------------------------------------
+        text_file = os.path.join(work, "sentences.txt")
+        with open(text_file, "w", encoding="utf-8") as f:
+            f.write("\n".join(SENTENCES) + "\n")
+        syn = os.path.join(work, "syn")
+        syn_args = [last, text_file, syn, "--preset",
+                    presets["deepvoice3_ljspeech"], "--hparams", hp_str]
+        run_cli(repo, "synthesis", syn_args + [
+            "--batch-size", 32, "--warmup", "--device", device,
+            "--summary-json", os.path.join(work, "syn.json")])
+        with open(os.path.join(work, "syn.json")) as f:
+            sy = json.load(f)
+        launches["cli_synthesis"] = cli_launches(sy)
+        wavs = [p for p in os.listdir(syn) if p.endswith(".wav")]
+        ckpt.load_checkpoint(last, params)
+        ap = pkg["AudioProcessor"](hp)
+        ref = pkg["synthesis"].tts_batch(params, cfg, ap, en, SENTENCES,
+                                         max_decoder_steps=500)
+        steps = sy["batches"][0]["decoded_steps"]
+        b = sy["batches"][0]
+        rows["cli_synthesis"] = {
+            "wavs": len(wavs), "wall_ms": b["wall_ms"],
+            "audio_s": b["audio_s"], "rtf": b["audio_s"] / b["wall_ms"] * 1e3,
+            "decoded_steps_min_max": [min(steps), max(steps)],
+            "in_process_steps_equal": steps == [
+                r["num_decoder_steps"] for r in ref],
+            "launches": launches["cli_synthesis"]}
+        phase("cli_synthesis", "B=32: %s (%s)" % (
+            json.dumps(rows["cli_synthesis"]), card))
+        if len(wavs) != 32 or not rows["cli_synthesis"][
+                "in_process_steps_equal"]:
+            fail("cli_synthesis: 32 wavs whose decoded steps equal an "
+                 "in-process tts_batch's on the same parameters")
+
+        two = os.path.join(work, "two.txt")
+        with open(two, "w", encoding="utf-8") as f:
+            f.write("\n".join(SENTENCES[:2]) + "\n")
+        t = time.time()
+        run_cli(repo, "synthesis", [last, two, os.path.join(work, "cpu"),
+                                    "--preset",
+                                    presets["deepvoice3_ljspeech"],
+                                    "--hparams", hp_str, "--batch-size", 2,
+                                    "--device", "cpu", "--summary-json",
+                                    os.path.join(work, "cpu.json")])
+        cpu_s = time.time() - t
+        with open(os.path.join(work, "cpu.json")) as f:
+            cpu_steps = json.load(f)["batches"][0]["decoded_steps"]
+        card_ref = pkg["synthesis"].tts_batch(params, cfg, ap, en,
+                                              SENTENCES[:2],
+                                              max_decoder_steps=500)
+        from scipy.io import wavfile
+        ratios = []
+        for i, r in enumerate(card_ref):
+            name = "%d_%s.wav" % (i, os.path.splitext(
+                os.path.basename(last))[0])
+            _, w_cpu = wavfile.read(os.path.join(work, "cpu", name))
+            lin = (r["linear"] - ap.min_level_db) / -ap.min_level_db
+            if len(w_cpu) == len(r["waveform"]):
+                ratios.append(sc_gain(torch, ap, r["waveform"], lin)
+                              / sc_gain(torch, ap, w_cpu, lin))
+        card_steps = [r["num_decoder_steps"] for r in card_ref]
+        rows["cli_synthesis_cpu"] = {
+            "cpu_steps": cpu_steps, "card_steps": card_steps,
+            "sc_ratio": ratios, "command_s": cpu_s}
+        phase("cli_synthesis", "--device cpu on 2 sentences: %s (bars: "
+              "decoded steps exact, spectral convergence of the card's "
+              "audio within 1.05x the CPU's, each after its best gain)"
+              % json.dumps(rows["cli_synthesis_cpu"]))
+        if cpu_steps != card_steps or len(ratios) != 2 or \
+                max(ratios) > 1.05:
+            ok = False
+            phase("cli_synthesis", "FAILED: the CPU run disagreed")
+
+        one = os.path.join(work, "one.txt")
+        with open(one, "w", encoding="utf-8") as f:
+            f.write(SENTENCES[0] + "\n")
+        run_cli(repo, "synthesis", [last, one, os.path.join(work, "stream"),
+                                    "--preset",
+                                    presets["deepvoice3_ljspeech"],
+                                    "--hparams", hp_str, "--stream",
+                                    "--warmup", "--device", device,
+                                    "--summary-json",
+                                    os.path.join(work, "stream.json")])
+        with open(os.path.join(work, "stream.json")) as f:
+            st = json.load(f)
+        launches["cli_stream"] = cli_launches(st)
+        rows["cli_stream"] = {
+            "first_chunk_ms": [b["first_chunk_ms"] for b in st["batches"]],
+            "wall_ms": [b["wall_ms"] for b in st["batches"]],
+            "decoded_steps": [b["decoded_steps"] for b in st["batches"]],
+            "launches": launches["cli_stream"]}
+        phase("cli_synthesis", "--stream, one sentence: %s (%s)"
+              % (json.dumps(rows["cli_stream"]), card))
+
+        # -- serve -----------------------------------------------------------
+        sv, launches["cli_serve"] = serve_cli(
+            repo, last, presets["deepvoice3_ljspeech"], hp_str,
+            SENTENCES[:3], device)
+        rows["cli_serve"] = {"requests": sv, "launches": launches["cli_serve"]}
+        phase("cli_serve", "cli.serve --slots 8, 3 requests one after "
+              "another: %s (%s)" % (json.dumps(rows["cli_serve"]), card))
+        if not all(r["status"] == 200 and r["wav_header"] and r["pcm_even"]
+                   and r["pcm_samples"] > 0 for r in sv):
+            fail("cli_serve: a request did not get 200 with a WAV header "
+                 "and PCM")
+
+        # -- the other builders ----------------------------------------------
+        vctk_corpus = os.path.join(work, "vctk")
+        hp_v = preset_hparams(hparams, repo, "deepvoice3_vctk")
+        hp_v.parse(extra_hp)
+        write_corpus(torch, pkg, hp_v, vctk_corpus, dev,
+                     speakers=hp_v.n_speakers)
+        for label, preset, data, spk in (
+                ("nyanko", "nyanko_ljspeech", corpus, None),
+                ("vctk", "deepvoice3_vctk", vctk_corpus, 7)):
+            d = os.path.join(work, label)
+            b_hp = ",".join(s for s in ("checkpoint_interval=100000,"
+                                        "eval_interval=100000", extra_hp)
+                            if s)
+            run_cli(repo, "train", [
+                "--preset", presets[preset], "--device", device,
+                "--data-root", data, "--hparams", b_hp,
+                "--checkpoint-dir", os.path.join(d, "ck"),
+                "--max-steps", builder_steps,
+                "--log-event-path", os.path.join(work, "log"),
+                "--summary-json", os.path.join(d, "train.json")])
+            with open(os.path.join(d, "train.json")) as f:
+                bt = json.load(f)
+            eight = os.path.join(d, "eight.txt")
+            with open(eight, "w", encoding="utf-8") as f:
+                f.write("\n".join(SENTENCES[:8]) + "\n")
+            extra = [] if spk is None else ["--speaker_id", spk]
+            run_cli(repo, "synthesis", [
+                ckpt.checkpoint_path(os.path.join(d, "ck"), builder_steps),
+                eight, os.path.join(d, "syn"), "--preset", presets[preset],
+                "--hparams", b_hp, "--batch-size", 8, "--device", device,
+                "--summary-json", os.path.join(d, "syn.json")] + extra)
+            with open(os.path.join(d, "syn.json")) as f:
+                bs = json.load(f)
+            n_wavs = len([p for p in os.listdir(os.path.join(d, "syn"))
+                          if p.endswith(".wav")])
+            launches["cli_train_" + label] = cli_launches(bt)
+            launches["cli_synthesis_" + label] = cli_launches(bs)
+            rows["cli_" + label] = {
+                "losses": bt["losses"],
+                "steady_steps_per_s": bt.get("steady_steps_per_s"),
+                "b3_by_route": launches["cli_train_" + label]["conv_taps"],
+                "wavs": n_wavs, "synthesis_wall_ms":
+                bs["batches"][0]["wall_ms"],
+                "decoded_steps": bs["batches"][0]["decoded_steps"],
+                "synthesis_launches": launches["cli_synthesis_" + label]}
+            phase("cli_builders", "%s: %d steps and 8 sentences%s: %s (%s)"
+                  % (label, builder_steps, "" if spk is None
+                     else " as speaker %d" % spk,
+                     json.dumps(rows["cli_" + label]), card))
+            if len(bt["losses"]) != builder_steps or \
+                    not all(np.isfinite(bt["losses"])) or n_wavs != 8:
+                fail("cli_builders: %s: finite losses and 8 wavs" % label)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return ok, rows, launches
+
+
 def main():
     import argparse
 
@@ -3248,6 +3761,9 @@ def main():
     ap.add_argument("--b2-only", action="store_true",
                     help="only build the kernels and run B2's phases (B2, "
                          "its windows and anchored start, P)")
+    ap.add_argument("--cli-only", action="store_true",
+                    help="only build the kernels and run the command "
+                         "lines' phases (cli_*)")
     args = ap.parse_args()
     json_out = args.json_out
     if not torch.cuda.is_available():
@@ -3268,6 +3784,11 @@ def main():
     from deepvoice3_pytorch_tpu_torch.ops import fused_decode as fd
     from deepvoice3_pytorch_tpu_torch.training import trainer  # noqa: F401
     from deepvoice3_pytorch_tpu_torch.utils import synthcorpus  # noqa: F401
+    from deepvoice3_pytorch_tpu_torch.cli import (  # noqa: F401
+        compute_timestamp_ratio, convert_checkpoint, dump_hparams_to_json)
+    from deepvoice3_pytorch_tpu_torch.cli import serve as cli_serve  # noqa
+    from deepvoice3_pytorch_tpu_torch.cli import synthesis as cli_syn  # noqa
+    from deepvoice3_pytorch_tpu_torch.cli import train as cli_train  # noqa
 
     if any(m == "jax" or m.startswith("deepvoice3_pytorch_tpu.")
            for m in sys.modules):
@@ -3335,6 +3856,20 @@ def main():
                               default=str)
             if not b2_ok_all:
                 fail("a B2 phase missed its bar")
+            return
+        if args.cli_only:
+            cli_ok, cli_rows, cli_l = cli_phases(torch, pkg, repo, card, dev)
+            phase("cli", "kernel launches on the command lines' paths: %s"
+                  % json.dumps(cli_totals(cli_l)))
+            if json_out:
+                os.makedirs(os.path.dirname(os.path.abspath(json_out)),
+                            exist_ok=True)
+                with open(json_out, "w") as f:
+                    json.dump({"card": card, "cli": cli_rows,
+                               "cli_launches": cli_l}, f, indent=1,
+                              default=str)
+            if not cli_ok:
+                fail("a command line's phase missed its bar")
             return
         b3, b3_extra = b3_phase(torch, dev, seed, card, usage)
         if args.b3_only:
@@ -3579,6 +4114,13 @@ def main():
         if any(k.endswith("_simple") for k in b3_launches):
             fail("the train step at bench.py's shapes took B3's ragged "
                  "route: %s" % json.dumps(b3_launches))
+
+        cli_ok, cli_rows, cli_l = cli_phases(torch, pkg, repo, card, dev)
+        cli = cli_totals(cli_l)
+        phase("cli", "kernel launches on the command lines' paths: %s"
+              % json.dumps(cli))
+        if not cli_ok:
+            fail("a command line's phase missed its bar")
         if json_out:
             os.makedirs(os.path.dirname(os.path.abspath(json_out)),
                         exist_ok=True)
@@ -3591,7 +4133,8 @@ def main():
                            "stream": st_rows,
                            "serve": sv_rows, "b1": b1_rows,
                            "b1_serve": b1s, "cb": cb_rows,
-                           "presets": preset_rows}, f, indent=1,
+                           "presets": preset_rows, "cli": cli_rows,
+                           "cli_launches": cli_l}, f, indent=1,
                           default=str)
 
     b1_bound = b1_rows["B1"]["bound"]
@@ -3600,7 +4143,8 @@ def main():
         {"name": "fused_decode", "route": "cuda",
          "source": "deepvoice3_pytorch_tpu_torch/csrc/fused_decode.cu",
          "replaces": "deepvoice3_pytorch_tpu/ops/fused_decode.py:198",
-         "launches": sum(b1_paths.values()) + sum(b1_slots.values()),
+         "launches": sum(b1_paths.values()) + sum(b1_slots.values())
+         + cli["fused_decode"] + cli["fused_decode_slots"],
          "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain_ms,
          "bound_ms": b1_bound[0], "bound_by": b1_bound[1],
          "library_ms": None, "timing": "host-paced",
@@ -3608,7 +4152,8 @@ def main():
         {"name": "fused_decode_slots", "route": "cuda",
          "source": "deepvoice3_pytorch_tpu_torch/csrc/fused_decode.cu",
          "replaces": "deepvoice3_pytorch_tpu/ops/fused_decode.py:198",
-         "launches": sum(b1_slots.values()), "max_abs_err": b1s["err"],
+         "launches": sum(b1_slots.values()) + cli["fused_decode_slots"],
+         "max_abs_err": b1s["err"],
          "ms": b1s["ms"], "plain_ms": b1s["plain_ms"],
          "bound_ms": b1s["bound"][0], "bound_by": b1s["bound"][1],
          "library_ms": None, "timing": "host-paced",
@@ -3616,7 +4161,8 @@ def main():
         {"name": "griffin_lim", "route": "cuda",
          "source": "deepvoice3_pytorch_tpu_torch/csrc/griffin_lim.cu",
          "replaces": "deepvoice3_pytorch_tpu/dsp/gl_pallas.py:146",
-         "launches": launches["griffin_lim"], "max_abs_err": b2["err"],
+         "launches": launches["griffin_lim"] + cli["griffin_lim"],
+         "max_abs_err": b2["err"],
          "ms": b2["cuda_ms"], "plain_ms": b2["plain_ms"],
          "bound_ms": b2["bound"][0], "bound_by": b2["bound"][1],
          "library_ms": None, "timing": "host-paced",
@@ -3625,7 +4171,8 @@ def main():
          "source": "deepvoice3_pytorch_tpu_torch/csrc/griffin_lim.cu",
          "replaces": "deepvoice3_pytorch_tpu/dsp/gl_pallas.py:146",
          "launches": st_launches["griffin_lim_stream"] + sum(
-             v["griffin_lim"] for v in cb_launches.values()),
+             v["griffin_lim"] for v in cb_launches.values())
+         + cli["griffin_lim_stream"],
          "max_abs_err": b2s["err"], "ms": b2s["cuda_ms"],
          "plain_ms": b2s["plain_ms"], "bound_ms": b2s["bound"][0],
          "bound_by": b2s["bound"][1], "library_ms": None,
@@ -3643,7 +4190,8 @@ def main():
         {"name": "conv_taps_%s_%s" % (entry, route), "route": "cuda",
          "source": "deepvoice3_pytorch_tpu_torch/csrc/conv_taps.cu",
          "replaces": "deepvoice3_pytorch_tpu/ops/conv_pallas.py:%d" % line,
-         "launches": b3_launches.get("%s_%s" % (entry, route), 0),
+         "launches": b3_launches.get("%s_%s" % (entry, route), 0)
+         + cli["conv_taps"].get("%s_%s" % (entry, route), 0),
          "max_abs_err": step[key]["err"], "ms": step[key]["ms"],
          "plain_ms": step[key]["plain_ms"],
          "bound_ms": step[key]["bound_ms"],

@@ -25,7 +25,7 @@ connection) and the handler record, per /tts request, the wall times of its
 hops to the first audio; `TTSEngine.hops()` returns the last 512.
 
 The engine runs where the parameters live. The command line, which loads a
-checkpoint, is not ported yet.
+checkpoint, is `cli/serve.py`.
 """
 
 import collections

@@ -7,14 +7,61 @@ plus `*-spec-*.npy` (T, 513) / `*-mel-*.npy` (T, 80) pairs. Batches come from
 the partially-randomized similar-length sampler and are collated with the
 reference's padding semantics (r / downsample rounding, b_pad initial frames,
 1-based positions, done flags), padded up to bucket shapes
-(length_bucket_step / frame_bucket_step). `training.trainer.batch_to` moves a
-collated batch onto the device.
+(length_bucket_step / frame_bucket_step). `DataLoader` collates in a
+background thread; `training.trainer.batch_to` moves a collated batch onto
+the device. `dsp_config.json`, the DSP stamp, records the audio conventions a
+corpus was preprocessed under, and training refuses a corpus whose stamp
+differs from the active hparams.
 """
 
+import json
+import os
+import queue as queue_mod
 import random
+import threading
+import warnings
 from os.path import join
 
 import numpy as np
+
+DSP_STAMP_KEYS = ("stft_mode", "fft_size", "hop_size", "sample_rate",
+                  "num_mels", "fmin", "fmax", "preemphasis", "min_level_db",
+                  "ref_level_db", "rescaling", "rescaling_max",
+                  "allow_clipping_in_normalization")
+
+
+def dsp_stamp(hp):
+    """The audio-convention fingerprint of a preprocessing run."""
+    return {k: getattr(hp, k) for k in DSP_STAMP_KEYS}
+
+
+def write_dsp_stamp(data_root, hp):
+    with open(join(data_root, "dsp_config.json"), "w") as f:
+        json.dump(dsp_stamp(hp), f, indent=2, sort_keys=True)
+
+
+def check_dsp_stamp(data_root, hp):
+    """Refuse (SystemExit) a corpus preprocessed under other DSP
+    conventions than the active hparams: a changed framing or
+    normalization shifts frame counts and feature scale and trains quietly
+    wrong. A corpus without dsp_config.json passes with a warning."""
+    path = join(data_root, "dsp_config.json")
+    if not os.path.exists(path):
+        warnings.warn(
+            "%s has no dsp_config.json stamp (preprocessed by an older "
+            "build); cannot verify the STFT conventions match" % data_root)
+        return
+    with open(path) as f:
+        stamped = json.load(f)
+    active = dsp_stamp(hp)
+    bad = {k: (stamped.get(k), active[k]) for k in DSP_STAMP_KEYS
+           if k in stamped and stamped[k] != active[k]}
+    if bad:
+        raise SystemExit(
+            "DSP convention mismatch between the preprocessed corpus and "
+            "the active hparams (re-run preprocess.py or fix the preset): "
+            + ", ".join("%s: corpus=%r active=%r" % (k, v[0], v[1])
+                        for k, v in sorted(bad.items())))
 
 
 class Metadata:
@@ -197,3 +244,54 @@ def collate(items, r, downsample_step, *, length_bucket_step=1,
         batch["speaker_ids"] = np.asarray(
             [it["speaker_id"] for it in items], np.int32)
     return batch
+
+
+class DataLoader:
+    """Background-thread prefetching batch iterator over `collate` (numpy;
+    the JAX package's C++ loader is not ported)."""
+
+    def __init__(self, dataset, sampler, r, downsample_step, *,
+                 length_bucket_step=1, frame_bucket_step=1,
+                 max_positions=None, prefetch=2):
+        self.dataset = dataset
+        self.sampler = sampler
+        self.r = r
+        self.downsample_step = downsample_step
+        self.length_bucket_step = length_bucket_step
+        self.frame_bucket_step = frame_bucket_step
+        self.max_positions = max_positions
+        self.prefetch = prefetch
+
+    def _make_batch(self, idxs):
+        return collate([self.dataset[i] for i in idxs], self.r,
+                       self.downsample_step,
+                       length_bucket_step=self.length_bucket_step,
+                       frame_bucket_step=self.frame_bucket_step,
+                       max_positions=self.max_positions)
+
+    def __iter__(self):
+        q = queue_mod.Queue(maxsize=self.prefetch)
+        sentinel = object()
+        error = []
+
+        def producer():
+            try:
+                for idxs in self.sampler:
+                    q.put(self._make_batch(idxs))
+            except Exception as e:   # re-raised in the consumer
+                error.append(e)
+            finally:
+                q.put(sentinel)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is sentinel:
+                break
+            yield item
+        if error:
+            raise error[0]
+
+    def __len__(self):
+        return len(self.dataset) // self.sampler.batch_size

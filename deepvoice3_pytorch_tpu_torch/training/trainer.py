@@ -42,6 +42,10 @@ class AdamState(NamedTuple):
     count: int        # updates applied so far (optax's count)
     mu: Any           # dotted name -> first moment
     nu: Any           # dotted name -> second moment
+    # the optax transforms chained before adam, whose states hold no
+    # leaves ("add_decayed_weights", "clip_by_global_norm"): a checkpoint's
+    # optimizer fingerprint names them (training/checkpoint.py)
+    transforms: tuple = ()
 
 
 class LossConfig(NamedTuple):
@@ -92,9 +96,12 @@ class Optimizer(NamedTuple):
 
     def init(self, params):
         """params: dotted name -> tensor."""
+        transforms = (("add_decayed_weights",) if self.weight_decay > 0
+                      else ()) + (("clip_by_global_norm",)
+                                  if self.clip_thresh > 0 else ())
         return AdamState(
             0, {k: torch.zeros_like(v) for k, v in params.items()},
-            {k: torch.zeros_like(v) for k, v in params.items()})
+            {k: torch.zeros_like(v) for k, v in params.items()}, transforms)
 
     def apply(self, params, grads, state):
         """Update `params` and the moments in place from `grads` (dotted
@@ -102,7 +109,7 @@ class Optimizer(NamedTuple):
         Returns the new AdamState."""
         names = list(params) if self.weight_decay > 0 else list(grads)
         if not names:
-            return AdamState(state.count + 1, state.mu, state.nu)
+            return state._replace(count=state.count + 1)
         p = [params[k] for k in names]
         g = [grads[k] if k in grads else torch.zeros_like(params[k])
              for k in names]
@@ -134,7 +141,7 @@ class Optimizer(NamedTuple):
         lr = float(self.lr_fn(state.count))
         torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(p, upd)
-        return AdamState(count_inc, state.mu, state.nu)
+        return state._replace(count=count_inc)
 
 
 def make_optimizer(hp, lr_fn):

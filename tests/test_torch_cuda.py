@@ -925,3 +925,59 @@ def test_conv_taps_kernel_rejects_bad_calls(dev):
         conv_cuda.conv_fwd(x.half(), w.half(), None, (1, 1), 1)
     with pytest.raises(ValueError):
         conv_cuda.conv_fwd(x, w.to(torch.bfloat16), None, (1, 1), 1)
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """A multi-speaker model's parameters and Adam moments after a step on
+    the card, saved synchronously and asynchronously (the moments changed
+    in place right after the submit) and loaded into another model on the
+    card: every tensor bit-equal, still on the card, and the two files
+    equal."""
+    from deepvoice3_pytorch_tpu_torch.hparams import default_hparams
+    from deepvoice3_pytorch_tpu_torch.training import checkpoint as ck
+    from deepvoice3_pytorch_tpu_torch.training import trainer
+
+    kw = dict(n_vocab=149, embed_dim=32, mel_dim=16, linear_dim=65, r=1,
+              downsample_step=4, dropout=0.0, kernel_size=3,
+              encoder_channels=32, decoder_channels=32, converter_channels=32,
+              n_speakers=5, speaker_embed_dim=8, max_positions=64)
+    cfg = builder.deepvoice3_multispeaker(**kw)
+    hp = default_hparams()
+    hp.fft_size, hp.num_mels = 128, 16
+    opt = trainer.make_optimizer(hp, trainer.make_lr_fn(hp))
+    params = builder.model_init(cfg, torch.Generator().manual_seed(1), dev)
+    step = trainer.make_train_step(cfg, trainer.loss_config_from_hparams(hp),
+                                   opt, trainer.trainable_mask(params, cfg))
+    state = trainer.init_train_state(params, opt)
+    rs = np.random.RandomState(3)
+    batch = trainer.batch_to({
+        "x": rs.randint(1, 149, (2, 12)),
+        "input_lengths": np.asarray([12, 9]),
+        "mel": rs.rand(2, 16, 16).astype(np.float32),
+        "y": rs.rand(2, 64, 65).astype(np.float32),
+        "text_positions": np.tile(np.arange(1, 13), (2, 1)),
+        "frame_positions": np.tile(np.arange(1, 17), (2, 1)),
+        "done": np.zeros((2, 16, 1), np.float32),
+        "target_lengths": np.asarray([64, 48]),
+        "speaker_ids": np.asarray([1, 4])}, dev)
+    state, _ = step(state, batch, torch.Generator(device=dev).manual_seed(0))
+    sync = ck.save_checkpoint(str(tmp_path / "sync"), state.params,
+                              state.opt_state, 1, 0)
+    path = ck.save_checkpoint(str(tmp_path / "async"), state.params,
+                              state.opt_state, 1, 0, async_save=True)
+    saved = [m.clone() for m in state.opt_state.mu.values()]
+    torch._foreach_mul_(list(state.opt_state.mu.values()), 2.0)
+    ck.wait_pending_saves()
+    torch._foreach_copy_(list(state.opt_state.mu.values()), saved)
+    assert open(path, "rb").read() == open(sync, "rb").read()
+
+    other = builder.model_init(cfg, torch.Generator().manual_seed(2), dev)
+    template = trainer.init_train_state(other, opt).opt_state
+    other, opt_state, gstep, _ = ck.load_checkpoint(path, other, template)
+    assert gstep == 1 and opt_state.count == 1
+    want = state.params.state_dict()
+    for k, v in other.state_dict().items():
+        assert v.device == dev and torch.equal(v, want[k]), k
+        for a, b in ((opt_state.mu, state.opt_state.mu),
+                     (opt_state.nu, state.opt_state.nu)):
+            assert a[k].device == dev and torch.equal(a[k], b[k]), k
