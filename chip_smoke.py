@@ -170,7 +170,29 @@ Phases, one line each; any failure exits non-zero before the result lines:
      (VCTK as speaker 7). Each command line's launch counts (its
      --summary-json, or serve's last line) are summed into the `cli` line,
      which fails unless B1 (both modes), B2 (both modes) and B3 launched,
-     and into the kernels line.
+     and into the kernels line;
+ 17. the DSP configurations and preprocessing (phases `B2_center`,
+     `dsp_modes`, `cli_preprocess`): B2 in the centred framing (the
+     periodic sqrt-Hann folded into its operands, the fft // 2 trim) at
+     (32, 400, 513) x 16 against its plain version at phase 6's bars;
+     tts_batch of the 32 sentences at the LJSpeech preset's full width
+     (200-step cap) under stft_mode=center, sample_rate=16000 with
+     hop_size=240, and phase_retrieval=lws: the inversion route each must
+     take (B2 with the centred trim, the plain general-hop Griffin-Lim,
+     local weighted sums) and its device ms alone, 2 sentences on the card
+     and on the CPU (decoded steps exact, spectral convergence 1.05x the
+     CPU's), a 3-second synthetic waveform's features card against CPU
+     (`features_ok`), B1 launched and B2 only in its centred mode (the
+     counts of these runs are the main path's for the kernels line's
+     `griffin_lim_center`); then an LJSpeech layout of 512 synthetic
+     sentences (utils/synthcorpus, 16-bit wavs) through `cli.preprocess`
+     on the card and through its C++ backend (train.txt equal, features
+     `features_ok`, the DSP stamp; utterances and audio seconds per wall
+     second), `cli.train` 20 steps at B = 16 f32 on the card's corpus with
+     every batch from the C++ loader (its first two batches equal to
+     numpy's collate), and `cli.synthesis` of 8 sentences from the step-20
+     file (RTF). The smoke's whole time is printed before the result
+     lines.
 The line before the last is the kernels' JSON record (B1's launches
 summed over the three builders' main paths and the serving paths, its
 worst error over the four B1 phases; its times are the LJSpeech phase's;
@@ -216,6 +238,10 @@ builds the kernels and runs B2's phases (6 to 8) alone.
     python3 chip_smoke.py --cli-only
 
 builds the kernels and runs the command lines' phases (16) alone.
+
+    python3 chip_smoke.py --dsp-only
+
+builds the kernels and runs the DSP and preprocessing phases (17) alone.
 """
 
 import copy
@@ -1420,12 +1446,14 @@ def b2_bound_ms(B=32, n=400, fft=1024, hop=256, n_iters=16, planes=0):
 FFT, HOP = 1024, 256
 
 
-def tone_mags(torch, dev, seed, B, n):
+def tone_mags(torch, dev, seed, B, n, center=False):
     """Magnitudes of real signals: harmonic tones with vibrato plus noise,
-    (B, n, 513) at fft 1024, hop 256 (lws framing)."""
+    (B, n, 513) at fft 1024, hop 256 (lws framing; center: the centred
+    framing and its sqrt-Hann window)."""
     from deepvoice3_pytorch_tpu_torch.dsp import stft as dsp
 
-    win = dsp.lws_hann_window(FFT, HOP)
+    win = dsp.sqrt_hann_window(FFT) if center else \
+        dsp.lws_hann_window(FFT, HOP)
     g = torch.Generator().manual_seed(seed)
     t = torch.arange(n * HOP, dtype=torch.float64) / 22050.0
     f0 = 100.0 + 150.0 * torch.rand(B, 1, generator=g, dtype=torch.float64)
@@ -1434,20 +1462,24 @@ def tone_mags(torch, dev, seed, B, n):
     x = sum(torch.sin(h * phase) / h for h in range(1, 8))
     x = x + 0.01 * torch.randn(B, n * HOP, generator=g, dtype=torch.float64)
     x = x.float().to(dev)
-    return torch.abs(dsp.stft(dsp.lws_pad(x, FFT, HOP), FFT, HOP,
-                              torch.from_numpy(win).to(dev)))[:, :n] \
-        .contiguous()
+    if not center:
+        x = dsp.lws_pad(x, FFT, HOP)
+    return torch.abs(dsp.stft(x, FFT, HOP, torch.from_numpy(win).to(dev),
+                              center=center))[:, :n].contiguous()
 
 
-def spectral_convergence(torch, wav, S, fft=FFT, hop=HOP):
-    """||  |STFT(wav)| - S || / || S || over S's frames (lws framing): the
-    phase-retrieval quality of a Griffin-Lim output against the magnitudes
-    it was given."""
+def spectral_convergence(torch, wav, S, fft=FFT, hop=HOP, center=False):
+    """||  |STFT(wav)| - S || / || S || over S's frames (lws framing, or
+    the centred one): the phase-retrieval quality of a Griffin-Lim output
+    against the magnitudes it was given."""
     from deepvoice3_pytorch_tpu_torch.dsp import stft as dsp
 
-    win = torch.from_numpy(dsp.lws_hann_window(fft, hop)).to(wav.device)
+    win = torch.from_numpy(dsp.sqrt_hann_window(fft) if center else
+                           dsp.lws_hann_window(fft, hop)).to(wav.device)
     n = S.shape[-2]
-    M = torch.abs(dsp.stft(dsp.lws_pad(wav, fft, hop), fft, hop, win))
+    if not center:
+        wav = dsp.lws_pad(wav, fft, hop)
+    M = torch.abs(dsp.stft(wav, fft, hop, win, center=center))
     return float(torch.linalg.norm(M[..., :n, :] - S)
                  / torch.linalg.norm(S))
 
@@ -1884,6 +1916,403 @@ def check_p(torch, pkg, dev, seed, repo):
     return row, launches
 
 
+# ---------------------------------------------------------------------------
+# DSP breadth and preprocessing (phases B2_center, dsp_modes, cli_preprocess)
+# ---------------------------------------------------------------------------
+
+# the hparams overrides of phase dsp_modes, on the LJSpeech preset, and the
+# inversion route each must take
+DSP_MODES = (("center", "stft_mode=center", "b2"),
+             ("16k_hop240", "sample_rate=16000,hop_size=240", "general"),
+             ("lws", "phase_retrieval=lws", "lws"))
+
+
+def check_b2_center(torch, dev, seed, B=32, n=400, n_iters=16):
+    """B2 in the centred framing: the periodic sqrt-Hann window folded into
+    its operands and the fft // 2 trim, at (B, n, 513) x n_iters, SPSI
+    start, momentum 0.9, against its plain version: the B2 bars (b2_ok),
+    both timers, the bound of the batch shape and its share, the route."""
+    from deepvoice3_pytorch_tpu_torch.dsp import gl_cuda
+    from deepvoice3_pytorch_tpu_torch.dsp import stft as dsp
+
+    win = dsp.sqrt_hann_window(FFT)
+    S = tone_mags(torch, dev, seed + 8, B, n, center=True)
+    kw = dict(n_iters=n_iters, momentum=0.9, phase_init="spsi",
+              mats=gl_cuda.gl_mats(FFT, win, dev))
+    lo = FFT // 2
+
+    def kernel():
+        return gl_cuda.griffin_lim(S, FFT, HOP, win, center=True, **kw)
+
+    def plain():
+        return gl_cuda.griffin_lim_plain(S, FFT, HOP, win, **kw)[
+            :, lo:lo + n * HOP]
+
+    got, want, again = kernel(), plain(), kernel()
+    torch.cuda.synchronize()
+    plan = gl_cuda.gl_plan(B, n, FFT, HOP)
+    err, rel, first = wave_err(got, want, True)
+    row = {"shape": [B, n, FFT // 2 + 1], "iters": n_iters,
+           "plan": plan._asdict(), "unpinned_edge": True,
+           "launches_per_call": gl_cuda.gl_launches(plan, n_iters, False),
+           "bit_equal": torch.equal(got, again), "err": err, "rel": rel,
+           "first_hop_rel": first,
+           "sc": spectral_convergence(torch, got, S, center=True),
+           "sc_plain": spectral_convergence(torch, want, S, center=True),
+           "bound": b2_bound_ms(B, n, FFT, HOP, n_iters)}
+    row.update(b2_timed(torch, kernel))
+    row["plain_ms"] = cuda_ms(plain, torch)
+    row["bound_share"] = row["bound"][0] / row["cuda_ms"]
+    return row
+
+
+def b2_center_line(row, card):
+    return ("(%d, %d, 513) x %d, SPSI start, sqrt-Hann folded, centred trim: "
+            "max abs err %.3g (%.4f of peak after the first hop, bar 0.12; "
+            "the first hop %.4f of the whole peak), spectral convergence "
+            "kernel %.4f plain %.4f (bar 1.05x), two runs bit-equal %s; "
+            "kernel %.3f ms host-paced, %.3f ms device, plain %.3f ms, bound "
+            "%.4f ms (%s, %.3f of the host-paced time); route %s (%d-row "
+            "tiles, %d / %d columns), %d launches a call (%s)" % (
+                row["shape"][0], row["shape"][1], row["iters"], row["err"],
+                row["rel"], row["first_hop_rel"], row["sc"],
+                row["sc_plain"], row["bit_equal"], row["cuda_ms"],
+                row["device_ms"], row["plain_ms"], row["bound"][0],
+                row["bound"][1], row["bound_share"], row["plan"]["route"],
+                row["plan"]["bm"], row["plan"]["bn_syn"],
+                row["plan"]["bn_ana"], row["launches_per_call"], card))
+
+
+def feature_diff(pairs):
+    """(max, mean, share of values more than 2e-4 apart) of |a - b| over
+    (a, b) feature pairs. Two correct f32 FFTs (cuFFT, pocketfft, the C++
+    radix-2) differ by ~1e-7 of a frame's peak; in bins 80-100 dB below it,
+    next to the -100 dB floor, the dB scale turns that into up to a few
+    1e-3 on [0, 1] features (1.7e-3 seen between cuFFT and the C++ library
+    on 16-bit speech), so the bars are the mean, 1e-5, and the share of
+    values beyond the JAX package's native-against-device bar of 2e-4
+    (tests/test_native.py), one in a thousand; the max is a figure."""
+    d = np.concatenate([np.abs(np.asarray(a, np.float64) - b).ravel()
+                        for a, b in pairs])
+    return float(d.max()), float(d.mean()), float((d > 2e-4).mean())
+
+
+def features_ok(diff):
+    return diff[1] <= 1e-5 and diff[2] <= 1e-3
+
+
+def kernel_counts(kernels):
+    """{kernel: launches by entry} of (name, KERNEL) pairs."""
+    return {name: dict(k.by_entry) for name, k in kernels}
+
+
+def padded_linear(torch, res, min_level_db, dev):
+    """tts_batch's trimmed per-item linear frames (dB) back to a padded
+    normalized (B, n, F) batch on `dev`."""
+    n = max(len(r["linear"]) for r in res)
+    lin = np.zeros((len(res), n, res[0]["linear"].shape[1]), np.float32)
+    for i, r in enumerate(res):
+        lin[i, :len(r["linear"])] = (r["linear"] - min_level_db) \
+            / -min_level_db
+    return torch.from_numpy(lin).to(dev)
+
+
+def dsp_mode_run(torch, pkg, hp, dev, seed, card, label, route):
+    """One DSP configuration on the synthesis path: tts_batch of the 32
+    sentences at the LJSpeech preset's full width (seeded random weights,
+    200-step cap) after a warm-up, then 2 of them on the card and on the
+    CPU (decoded steps exact, the card's audio within 1.05x the CPU's
+    spectral convergence); the route that inverted (counted by the
+    AudioProcessor) and its time alone on the batch (host-paced and
+    device); for the two framings that change the features, a 3-second
+    synthetic waveform's features on the card against the CPU
+    (`feature_diff`, `features_ok`).
+    Returns (ok, row, launches by kernel and entry)."""
+    from deepvoice3_pytorch_tpu_torch.dsp import gl_cuda
+    from deepvoice3_pytorch_tpu_torch.ops import conv_cuda
+    from deepvoice3_pytorch_tpu_torch.ops import fused_decode as fd
+    from deepvoice3_pytorch_tpu_torch.utils import synthcorpus as sc
+
+    kernels = (("fused_decode", fd.KERNEL), ("griffin_lim", gl_cuda.KERNEL),
+               ("conv_taps", conv_cuda.KERNEL))
+    en, synthesis = pkg["en"], pkg["synthesis"]
+    cfg, params = pkg["model_builder"].build_model(hp, en.n_vocab, seed=seed,
+                                                   device=dev)
+    ap = pkg["AudioProcessor"](hp)
+
+    def run(texts, params=params, ap=ap):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.time()
+        res = synthesis.tts_batch(params, cfg, ap, en, texts,
+                                  max_decoder_steps=200)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return res, (time.time() - t) * 1e3
+
+    run(SENTENCES)                                   # warm-up
+    for _, k in kernels:
+        k.reset_counts()
+    ap.routes.clear()
+    res, wall = run(SENTENCES)
+    two, _ = run(SENTENCES[:2])
+    launches = kernel_counts(kernels)
+    routes = dict(ap.routes)
+    steps = [r["num_decoder_steps"] for r in res]
+    bad = [i for i, r in enumerate(res) if r["waveform"].shape != (
+        r["num_decoder_steps"] * 4 * hp.hop_size,)
+        or not np.isfinite(r["waveform"]).all()]
+    audio_s = sum(len(r["waveform"]) for r in res) / hp.sample_rate
+    S = ap._denorm_pow(padded_linear(torch, res, ap.min_level_db, dev))
+    route_ms = {"host_paced": cuda_ms(lambda: ap.phase_retrieval_device(S),
+                                      torch, reps=2),
+                "device": device_ms(lambda: ap.phase_retrieval_device(S),
+                                    torch, reps=2)}
+
+    cpu = torch.device("cpu")
+    ap_cpu = pkg["AudioProcessor"](hp)
+    t = time.time()
+    two_cpu, _ = run(SENTENCES[:2], copy.deepcopy(params).to(cpu), ap_cpu)
+    cpu_s = time.time() - t
+    ratios = []
+    for o, r in zip(two, two_cpu):
+        if o["num_decoder_steps"] == r["num_decoder_steps"]:
+            lin = (r["linear"] - ap.min_level_db) / -ap.min_level_db
+            ratios.append(sc_ratio(torch, ap_cpu, o["waveform"],
+                                   r["waveform"], lin))
+    row = {"wall_ms": wall, "audio_s": audio_s, "rtf": audio_s / wall * 1e3,
+           "decoded_steps_min_max": [min(steps), max(steps)],
+           "routes": routes, "route_ms": route_ms,
+           "batch_shape": list(S.shape), "launches": launches,
+           "cpu_steps": [r["num_decoder_steps"] for r in two_cpu],
+           "card_steps": [r["num_decoder_steps"] for r in two],
+           "sc_ratio": ratios, "cpu_command_s": cpu_s}
+    if ap.stft_mode == "center" or ap.fft_size % ap.hop_size:
+        text = sc.make_sentences(1, seed=5, min_words=9, max_words=9)[0]
+        wav = sc.synth_wav(text, hp.sample_rate, hp.hop_size)
+        wav = np.resize(wav, 3 * hp.sample_rate)
+        got = ap.both_spectrograms(wav, device=dev)
+        want = ap_cpu.both_spectrograms(wav, device="cpu")
+        row["features_max_mean_share2e-4"] = feature_diff(zip(got, want))
+        row["feature_frames"] = got[0].shape[0]
+    ok = (not bad and routes == {route: 2}
+          and row["cpu_steps"] == row["card_steps"] and len(ratios) == 2
+          and max(ratios) <= 1.05
+          and features_ok(row.get("features_max_mean_share2e-4",
+                                  (0.0, 0.0, 0.0)))
+          and sum(launches["fused_decode"].values()) > 0
+          and not launches["conv_taps"]
+          and (sum(launches["griffin_lim"].values()) > 0) == (route == "b2"))
+    if route == "b2":
+        ok &= set(launches["griffin_lim"]) == {"center"}
+    phase("dsp_modes", "%s: %s (bars: the route %s, decoded steps on the "
+          "card and the CPU exact, spectral convergence of the card's audio "
+          "1.05x the CPU's, features card against CPU 1e-5 on average "
+          "and one value in a thousand beyond 2e-4, B1 launched%s) (%s)" % (
+              label, json.dumps(row), route, ", B2 in its centred mode"
+              if route == "b2" else ", B2 not", card))
+    return ok, row, launches
+
+
+def write_ljspeech_corpus(root, n, sample_rate):
+    """An LJSpeech layout of synthetic speech (utils/synthcorpus): n
+    sentences of make_sentences, metadata.csv and wavs/*.wav, 16-bit PCM at
+    sample_rate. Returns the seconds of audio written."""
+    from scipy.io import wavfile
+
+    from deepvoice3_pytorch_tpu_torch.utils import synthcorpus as sc
+
+    os.makedirs(os.path.join(root, "wavs"))
+    lines, total = [], 0
+    for i, text in enumerate(sc.make_sentences(n, seed=11)):
+        wav = sc.synth_wav(text, sample_rate, 256)
+        wavfile.write(os.path.join(root, "wavs", "LJ%04d.wav" % i),
+                      sample_rate, (wav * 32767).astype(np.int16))
+        lines.append("LJ%04d|%s|%s" % (i, text.upper(), text))
+        total += len(wav)
+    with open(os.path.join(root, "metadata.csv"), "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return total / sample_rate
+
+
+def cli_preprocess_phase(torch, pkg, repo, card, dev, device="cuda",
+                         n_utts=512, train_steps=20, extra_hp=""):
+    """Phase cli_preprocess: an LJSpeech layout of n_utts synthetic
+    sentences through `cli.preprocess ljspeech` at the LJSpeech preset on
+    the card, and again with DV3_PREPROCESS_BACKEND=native (the C++
+    library on the host): train.txt equal byte for byte, features within
+    `features_ok`, dsp_config.json in both; `cli.train` train_steps steps
+    at B = 16 f32 on the card's corpus, every batch from the C++ loader,
+    and the loader's first two batches equal to numpy's collate of the
+    same indices; `cli.synthesis` of 8 sentences from the last checkpoint.
+    Returns (row, launches: {phase: {kernel: by entry}})."""
+    import random
+    import shutil
+    import tempfile
+
+    from deepvoice3_pytorch_tpu_torch.training import checkpoint as ckpt
+    from deepvoice3_pytorch_tpu_torch.training import dataset
+
+    hparams, en = pkg["hparams"], pkg["en"]
+    preset = os.path.join(repo, "presets", "deepvoice3_ljspeech.json")
+    hp = preset_hparams(hparams, repo, "deepvoice3_ljspeech")
+    hp.parse(extra_hp)
+    work = tempfile.mkdtemp(prefix="dv3_pre_")
+    row, launches = {}, {}
+    try:
+        corpus = os.path.join(work, "LJSpeech")
+        t = time.time()
+        row["corpus_audio_s"] = write_ljspeech_corpus(corpus, n_utts,
+                                                      hp.sample_rate)
+        row["corpus_write_s"] = time.time() - t
+        outs = {}
+        for backend in ("device", "native"):
+            out = os.path.join(work, backend)
+            t = time.time()
+            run_cli(repo, "preprocess", [
+                "ljspeech", corpus, out, "--preset", preset, "--hparams",
+                extra_hp, "--device", device, "--summary-json",
+                os.path.join(work, backend + ".json")],
+                env={"DV3_PREPROCESS_BACKEND": backend})
+            with open(os.path.join(work, backend + ".json")) as f:
+                summ = json.load(f)
+            summ["command_s"] = time.time() - t
+            summ["utterances_per_s"] = summ["utterances"] / summ["wall_s"]
+            summ["audio_s_per_wall_s"] = summ["audio_s"] / summ["wall_s"]
+            row["preprocess_" + backend] = summ
+            outs[backend] = out
+        with open(os.path.join(outs["device"], "train.txt"), "rb") as f:
+            txt = f.read()
+        with open(os.path.join(outs["native"], "train.txt"), "rb") as f:
+            row["train_txt_equal"] = f.read() == txt
+        lines = txt.decode("utf-8").splitlines()
+        pairs = [[np.load(os.path.join(outs[k], name))
+                  for k in ("device", "native")]
+                 for line in lines for name in line.split("|")[:2]]
+        shapes = all(a.shape == b.shape for a, b in pairs)
+        diff = feature_diff(pairs) if shapes else (np.inf, np.inf, 1.0)
+        row["features_max_mean_share2e-4"] = diff
+        row["stamps"] = all(os.path.exists(os.path.join(
+            outs[k], "dsp_config.json")) for k in outs)
+        row["utterances"] = len(lines)
+        phase("cli_preprocess", "%d sentences (%.1f s of 16-bit audio): "
+              "card %s; C++ on the host %s; train.txt equal %s, features "
+              "card against C++: max %.3g, mean %.3g (bar 1e-5), share "
+              "beyond 2e-4 %.2g (bar 1e-3); dsp_config.json %s (%s)" % (
+                  row["utterances"], row["corpus_audio_s"],
+                  json.dumps(row["preprocess_device"]),
+                  json.dumps(row["preprocess_native"]),
+                  row["train_txt_equal"], diff[0], diff[1], diff[2],
+                  row["stamps"], card))
+        if not (row["train_txt_equal"] and features_ok(diff)
+                and row["stamps"]):
+            fail("cli_preprocess: the card's corpus and the C++ one differ")
+
+        # the C++ loader's first two batches of cli.train's sampler against
+        # numpy's collate of the same indices, the pronunciation mix seeded
+        # alike
+        ds = dataset.TTSDataset(outs["device"], en,
+                                hp.replace_pronunciation_prob)
+        sampler = iter(dataset.SimilarTimeLengthSampler(
+            ds.meta.frame_lengths, batch_size=hp.batch_size))
+        kw = dict(length_bucket_step=hp.length_bucket_step,
+                  frame_bucket_step=hp.frame_bucket_step,
+                  max_positions=hp.max_positions)
+        equal = []
+        for k in range(2):
+            idxs = next(sampler)
+            random.seed(k)
+            got = dataset.collate_native(ds, idxs, hp.outputs_per_step,
+                                         hp.downsample_step, **kw)
+            random.seed(k)
+            want = dataset.collate([ds[i] for i in idxs], hp.outputs_per_step,
+                                   hp.downsample_step, **kw)
+            equal.append(got is not None and set(got) == set(want) and all(
+                np.array_equal(got[n], want[n]) for n in want))
+
+        ck = os.path.join(work, "ck")
+        run_cli(repo, "train", [
+            "--preset", preset, "--device", device, "--data-root",
+            outs["device"], "--hparams", ",".join(s for s in (
+                "checkpoint_interval=%d,eval_interval=100000" % train_steps,
+                extra_hp) if s),
+            "--checkpoint-dir", ck, "--max-steps", train_steps,
+            "--log-event-path", os.path.join(work, "log"),
+            "--summary-json", os.path.join(work, "train.json")])
+        with open(os.path.join(work, "train.json")) as f:
+            tr = json.load(f)
+        launches["cli_preprocess_train"] = cli_launches(tr)
+        row["train"] = {
+            "steps": len(tr["losses"]), "first_loss": tr["losses"][0],
+            "last_loss": tr["losses"][-1],
+            "steady_steps_per_s": tr.get("steady_steps_per_s"),
+            "loader_batches": tr["loader_batches"],
+            "first_two_batches_equal_numpy": equal,
+            "b3_by_route": launches["cli_preprocess_train"]["conv_taps"]}
+        phase("cli_preprocess", "cli.train on the card's corpus: %s (%s)"
+              % (json.dumps(row["train"]), card))
+        if len(tr["losses"]) != train_steps or not all(
+                np.isfinite(tr["losses"])) or not all(equal) or \
+                tr["loader_batches"]["numpy"] or \
+                tr["loader_batches"]["native"] < train_steps:
+            fail("cli_preprocess: cli.train's losses finite, every batch "
+                 "from the C++ loader, the first two equal to numpy's")
+
+        eight = os.path.join(work, "eight.txt")
+        with open(eight, "w", encoding="utf-8") as f:
+            f.write("\n".join(SENTENCES[:8]) + "\n")
+        run_cli(repo, "synthesis", [
+            ckpt.checkpoint_path(ck, train_steps), eight,
+            os.path.join(work, "syn"), "--preset", preset, "--hparams",
+            extra_hp, "--batch-size", 8, "--warmup", "--device", device,
+            "--summary-json", os.path.join(work, "syn.json")])
+        with open(os.path.join(work, "syn.json")) as f:
+            sy = json.load(f)
+        b = sy["batches"][0]
+        launches["cli_preprocess_synthesis"] = cli_launches(sy)
+        n_wavs = len([p for p in os.listdir(os.path.join(work, "syn"))
+                      if p.endswith(".wav")])
+        row["synthesis"] = {"wavs": n_wavs, "wall_ms": b["wall_ms"],
+                            "audio_s": b["audio_s"],
+                            "rtf": b["audio_s"] / b["wall_ms"] * 1e3,
+                            "decoded_steps": b["decoded_steps"]}
+        phase("cli_preprocess", "cli.synthesis of 8 sentences from the "
+              "step-%d file: %s (%s)" % (train_steps,
+                                         json.dumps(row["synthesis"]), card))
+        if n_wavs != 8:
+            fail("cli_preprocess: cli.synthesis wrote %d wavs, not 8"
+                 % n_wavs)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return row, launches
+
+
+def dsp_phases(torch, pkg, repo, dev, seed, card, device="cuda", extra_hp="",
+               b2_shape=(32, 400), n_utts=512, train_steps=20):
+    """Phases B2_center, dsp_modes and cli_preprocess (extra_hp, b2_shape,
+    n_utts and train_steps cut them down for a rehearsal on the CPU).
+    Returns (ok, rows, launches: {phase: {kernel: by entry}}); the
+    dsp_modes runs' counts are the main path's (reset before each, read
+    after)."""
+    hparams = pkg["hparams"]
+    rows, launches, ok = {}, {}, True
+    row = check_b2_center(torch, dev, seed, *b2_shape)
+    rows["b2_center"] = row
+    phase("B2_center", b2_center_line(row, card))
+    ok &= b2_ok(row)
+    for label, override, route in DSP_MODES:
+        hp = ljspeech_hparams(hparams, repo)
+        hp.parse(",".join(s for s in (extra_hp, override) if s))
+        mode_ok, rows["dsp_" + label], launches["dsp_" + label] = \
+            dsp_mode_run(torch, pkg, hp, dev, seed, card, label, route)
+        ok &= mode_ok
+    rows["cli_preprocess"], cli_l = cli_preprocess_phase(
+        torch, pkg, repo, card, dev, device=device, n_utts=n_utts,
+        train_steps=train_steps, extra_hp=extra_hp)
+    launches.update(cli_l)
+    return ok, rows, launches
+
+
 def tiny_model(pkg, seed=7, name="deepvoice3"):
     """A tiny model of builder `name` (the LJSpeech structure; nyanko; five
     speakers) on the CPU, an audio configuration at fft 128, hop 32, and
@@ -1920,7 +2349,8 @@ def sc_ratio(torch, ap, wav, wav_ref, lin_ref):
     S = ap._denorm_pow(torch.from_numpy(np.asarray(lin_ref, np.float32)))
     sc = [spectral_convergence(torch, preemphasis(torch, w,
                                                   ap.preemphasis_coef), S,
-                               ap.fft_size, ap.hop_size)
+                               ap.fft_size, ap.hop_size,
+                               center=ap.stft_mode == "center")
           for w in (wav, wav_ref)]
     return sc[0] / sc[1]
 
@@ -2007,7 +2437,7 @@ class plain_griffin_lim_on_card:
 
         self.gl, self.kernel = gl_cuda, gl_cuda._griffin_lim_cuda
 
-        def plain(S, fft, hop, win, **kw):
+        def plain(S, fft, hop, win, center=False, **kw):
             return gl_cuda.griffin_lim_plain(S, fft, hop, win, **kw)
 
         gl_cuda._griffin_lim_cuda = plain
@@ -3262,15 +3692,17 @@ def b2_turns(parent, card, json_out):
 CLI = "deepvoice3_pytorch_tpu_torch.cli."
 
 
-def run_cli(repo, name, args, timeout=600):
-    """One command line as a subprocess from the checkout's root; fails the
-    smoke (with the tail of its output) on a non-zero exit. Returns its
-    stdout."""
+def run_cli(repo, name, args, timeout=600, env=None):
+    """One command line as a subprocess from the checkout's root (env: extra
+    environment variables); fails the smoke (with the tail of its output)
+    on a non-zero exit. Returns its stdout."""
     cmd = [sys.executable, "-m", CLI + name] + [str(a) for a in args]
     t = time.time()
     try:
         r = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
-                           timeout=timeout)
+                           timeout=timeout,
+                           env=None if env is None else dict(os.environ,
+                                                             **env))
     except subprocess.TimeoutExpired:
         fail("cli.%s timed out after %d s" % (name, timeout))
     if r.returncode != 0:
@@ -3764,7 +4196,12 @@ def main():
     ap.add_argument("--cli-only", action="store_true",
                     help="only build the kernels and run the command "
                          "lines' phases (cli_*)")
+    ap.add_argument("--dsp-only", action="store_true",
+                    help="only build the kernels and run the DSP and "
+                         "preprocessing phases (B2_center, dsp_modes, "
+                         "cli_preprocess)")
     args = ap.parse_args()
+    t_smoke = time.time()
     json_out = args.json_out
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -3856,6 +4293,22 @@ def main():
                               default=str)
             if not b2_ok_all:
                 fail("a B2 phase missed its bar")
+            return
+        if args.dsp_only:
+            dsp_ok, dsp_rows, dsp_l = dsp_phases(torch, pkg, repo, dev, seed,
+                                                 card)
+            phase("dsp", "kernel launches on the DSP and preprocessing "
+                  "paths: %s" % json.dumps(dsp_l))
+            if json_out:
+                os.makedirs(os.path.dirname(os.path.abspath(json_out)),
+                            exist_ok=True)
+                with open(json_out, "w") as f:
+                    json.dump({"card": card, "dsp": dsp_rows,
+                               "dsp_launches": dsp_l}, f, indent=1,
+                              default=str)
+            phase("total", "the smoke took %.1f s" % (time.time() - t_smoke))
+            if not dsp_ok:
+                fail("a DSP or preprocessing phase missed its bar")
             return
         if args.cli_only:
             cli_ok, cli_rows, cli_l = cli_phases(torch, pkg, repo, card, dev)
@@ -4116,11 +4569,22 @@ def main():
                  "route: %s" % json.dumps(b3_launches))
 
         cli_ok, cli_rows, cli_l = cli_phases(torch, pkg, repo, card, dev)
-        cli = cli_totals(cli_l)
-        phase("cli", "kernel launches on the command lines' paths: %s"
-              % json.dumps(cli))
+        dsp_ok, dsp_rows, dsp_l = dsp_phases(torch, pkg, repo, dev, seed,
+                                             card)
+        cli = cli_totals(dict(cli_l, **{k: v for k, v in dsp_l.items()
+                                        if k.startswith("cli_")}))
+        phase("cli", "kernel launches on the command lines' paths (with "
+              "cli_preprocess's): %s" % json.dumps(cli))
+        modes = {k: v for k, v in dsp_l.items() if k.startswith("dsp_")}
+        b2_center_launches = sum(v["griffin_lim"].get("center", 0)
+                                 for v in modes.values())
+        b1_dsp = sum(sum(v["fused_decode"].values()) for v in modes.values())
+        phase("dsp", "kernel launches on the three DSP configurations' "
+              "tts_batch paths: %s" % json.dumps(modes))
         if not cli_ok:
             fail("a command line's phase missed its bar")
+        if not dsp_ok or b2_center_launches <= 0:
+            fail("a DSP or preprocessing phase missed its bar")
         if json_out:
             os.makedirs(os.path.dirname(os.path.abspath(json_out)),
                         exist_ok=True)
@@ -4134,17 +4598,20 @@ def main():
                            "serve": sv_rows, "b1": b1_rows,
                            "b1_serve": b1s, "cb": cb_rows,
                            "presets": preset_rows, "cli": cli_rows,
-                           "cli_launches": cli_l}, f, indent=1,
+                           "cli_launches": cli_l, "dsp": dsp_rows,
+                           "dsp_launches": dsp_l}, f, indent=1,
                           default=str)
 
     b1_bound = b1_rows["B1"]["bound"]
+    b2c = dsp_rows["b2_center"]
+    phase("total", "the smoke took %.1f s" % (time.time() - t_smoke))
 
     print(json.dumps({"kernels": [
         {"name": "fused_decode", "route": "cuda",
          "source": "deepvoice3_pytorch_tpu_torch/csrc/fused_decode.cu",
          "replaces": "deepvoice3_pytorch_tpu/ops/fused_decode.py:198",
          "launches": sum(b1_paths.values()) + sum(b1_slots.values())
-         + cli["fused_decode"] + cli["fused_decode_slots"],
+         + cli["fused_decode"] + cli["fused_decode_slots"] + b1_dsp,
          "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain_ms,
          "bound_ms": b1_bound[0], "bound_by": b1_bound[1],
          "library_ms": None, "timing": "host-paced",
@@ -4167,6 +4634,13 @@ def main():
          "bound_ms": b2["bound"][0], "bound_by": b2["bound"][1],
          "library_ms": None, "timing": "host-paced",
          "gemm_library_ms": b2["gemm_library_ms"]},
+        {"name": "griffin_lim_center", "route": "cuda",
+         "source": "deepvoice3_pytorch_tpu_torch/csrc/griffin_lim.cu",
+         "replaces": "deepvoice3_pytorch_tpu/dsp/gl_pallas.py:146",
+         "launches": b2_center_launches, "max_abs_err": b2c["err"],
+         "ms": b2c["cuda_ms"], "plain_ms": b2c["plain_ms"],
+         "bound_ms": b2c["bound"][0], "bound_by": b2c["bound"][1],
+         "library_ms": None, "timing": "host-paced"},
         {"name": "griffin_lim_stream", "route": "cuda",
          "source": "deepvoice3_pytorch_tpu_torch/csrc/griffin_lim.cu",
          "replaces": "deepvoice3_pytorch_tpu/dsp/gl_pallas.py:146",

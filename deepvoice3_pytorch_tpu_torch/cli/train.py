@@ -22,8 +22,10 @@ the end (with the alignment images when matplotlib imports, the predicted
 wav, and TensorBoard records when tensorboardX imports); every
 `eval_interval` steps six sentences are synthesized with the port's
 `tts_batch` into <checkpoint-dir>/eval. A kernel or save error ends the run.
---summary-json writes the run's numbers: per-step losses, steady steps/s,
-save and load times, file sizes and the kernels' launch counts.
+Batches come from the C++ loader (`training.dataset.collate_native`; a
+batch it cannot read, from numpy's collate). --summary-json writes the
+run's numbers: per-step losses, steady steps/s, save and load times, file
+sizes, the kernels' launch counts and the batches each loader route made.
 """
 
 import argparse
@@ -293,7 +295,7 @@ def main(argv=None):
         downsample_step=hp.downsample_step,
         length_bucket_step=hp.length_bucket_step,
         frame_bucket_step=hp.frame_bucket_step,
-        max_positions=hp.max_positions)
+        max_positions=hp.max_positions, use_native=True)
     n_batches = len(ds) // hp.batch_size
     if n_batches == 0:
         raise SystemExit("%d utterances make no batch of %d"
@@ -463,7 +465,8 @@ def main(argv=None):
         summary["files"] = {k: os.path.getsize(join(args.checkpoint_dir, k))
                             for k in summary["files"]}
         summary.update(last_step=global_step, epoch=global_epoch,
-                       launches=common.kernel_launches())
+                       launches=common.kernel_launches(),
+                       loader_batches=dict(loader.batches))
         with open(args.summary_json, "w") as f:
             json.dump(summary, f, indent=1)
 

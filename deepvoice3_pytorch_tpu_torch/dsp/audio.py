@@ -1,32 +1,64 @@
 # coding: utf-8
-"""Audio API, counterpart of deepvoice3_pytorch_tpu/dsp/audio.py, in the
-lws framing only.
+"""Audio API, counterpart of deepvoice3_pytorch_tpu/dsp/audio.py.
 
-Features: waveform -> pre-emphasis -> tail pad -> |STFT| -> dB -> [0, 1]
+Two framings (`hparams.stft_mode`): "lws" (causal frames over a zero tail
+pad, the lws-normalised sqrt of a symmetric Hann; ceil(T / hop) frames) and
+"center" (reflect-padded by fft // 2 on both sides, the periodic sqrt-Hann;
+1 + T // hop frames). Any hop.
+
+Features: waveform -> pre-emphasis -> analysis pad -> |STFT| -> dB -> [0, 1]
 normalised linear and mel spectrograms, batched over ragged waveforms
 (`batch_features`) on the card unless the caller asks for the CPU.
 
 Inversion: normalized linear spectrogram -> denormalize -> dB to amplitude
--> ** power -> Griffin-Lim (dsp/gl_cuda.py: the CUDA kernel on the card,
-its plain version on the CPU) -> inverse pre-emphasis -> waveform.
+-> ** power -> phase retrieval -> inverse pre-emphasis -> waveform. The
+phase retrieval is chosen from the configuration (`inversion_route`) and
+counted per call in `routes`:
+  * "b2": Griffin-Lim on kernel B2 (dsp/gl_cuda.py: the CUDA kernel on the
+    card, its plain version on the CPU) when hop | fft, with the centred
+    trim in centre mode;
+  * "general": the JAX package's XLA Griffin-Lim loop in plain PyTorch
+    (dsp/stft.py `griffin_lim`) when hop does not divide fft, where the JAX
+    package takes that loop too;
+  * "lws": local-weighted-sums retrieval (dsp/lws_phase.py) for
+    phase_retrieval="lws", which needs hop | fft (ValueError at
+    construction otherwise, as in the JAX package).
 """
+
+import functools
 
 import numpy as np
 import torch
+from scipy import signal as sp_signal
 from scipy.io import wavfile
 
 from . import gl_cuda
+from . import lws_phase
 from . import stft as dsp
 
 
+def _tensor_or_numpy(fn):
+    """A helper that computes on tensors: a tensor in gives a tensor out; an
+    array in gives a float32 numpy array out (the JAX package's helpers
+    take and return numpy)."""
+    @functools.wraps(fn)
+    def wrapper(self, x):
+        if isinstance(x, torch.Tensor):
+            return fn(self, x)
+        return fn(self, torch.as_tensor(np.asarray(x, np.float32))).numpy()
+    return wrapper
+
+
 class AudioProcessor:
-    """Inversion constants for one audio config (an hparams-like object)."""
+    """Constants and routes for one audio config (an hparams-like object)."""
 
     def __init__(self, hp):
         self.sample_rate = hp.sample_rate
         self.fft_size = hp.fft_size
         self.hop_size = hp.hop_size
         self.num_mels = hp.num_mels
+        self.fmin = hp.fmin
+        self.fmax = hp.fmax
         self.allow_clipping = getattr(hp, "allow_clipping_in_normalization",
                                       True)
         self.preemphasis_coef = hp.preemphasis
@@ -36,18 +68,38 @@ class AudioProcessor:
         self.gl_iters = getattr(hp, "griffin_lim_iters", 60)
         self.gl_phase_init = getattr(hp, "griffin_lim_phase_init", "zero")
         self.gl_momentum = float(getattr(hp, "griffin_lim_momentum", 0.99))
-        if getattr(hp, "stft_mode", "lws") != "lws":
-            raise NotImplementedError("only stft_mode='lws' is ported")
-        if getattr(hp, "phase_retrieval", "gl") != "gl":
-            raise NotImplementedError("only phase_retrieval='gl' is ported")
-        if self.fft_size % self.hop_size:
+        self.stft_mode = getattr(hp, "stft_mode", "lws")
+        if self.stft_mode not in ("lws", "center"):
+            raise ValueError("stft_mode must be 'lws' or 'center', got %r"
+                             % (self.stft_mode,))
+        # "lws" selects local weighted sums; anything else Griffin-Lim, as
+        # in the JAX package
+        self.phase_retrieval = getattr(hp, "phase_retrieval", "gl")
+        if self.phase_retrieval == "lws" and self.fft_size % self.hop_size:
             raise ValueError(
-                "Griffin-Lim needs hop_size to divide fft_size (got "
-                "fft_size=%d hop_size=%d)" % (self.fft_size, self.hop_size))
-        self.window_np = dsp.lws_hann_window(self.fft_size, self.hop_size)
+                "phase_retrieval='lws' requires hop_size to divide "
+                "fft_size (got fft_size=%d hop_size=%d); use the default "
+                "'gl'" % (self.fft_size, self.hop_size))
+        if self.stft_mode == "lws":
+            self.window_np = dsp.lws_hann_window(self.fft_size, self.hop_size)
+        else:
+            self.window_np = dsp.sqrt_hann_window(self.fft_size)
         self.mel_filters_np = dsp.mel_basis(
-            self.sample_rate, self.fft_size, self.num_mels, hp.fmin, hp.fmax)
+            self.sample_rate, self.fft_size, self.num_mels, self.fmin,
+            self.fmax)
+        self.routes = {}           # inversion route -> calls
         self._mats = {}
+
+    @property
+    def centered(self):
+        return self.stft_mode == "center"
+
+    @property
+    def inversion_route(self):
+        """"lws", "b2" (hop | fft) or "general" (any other hop)."""
+        if self.phase_retrieval == "lws":
+            return "lws"
+        return "general" if self.fft_size % self.hop_size else "b2"
 
     def mats(self, device):
         """Window-folded bf16 DFT matrices on `device`, built once."""
@@ -59,6 +111,26 @@ class AudioProcessor:
 
     # -- file I/O (host) ----------------------------------------------------
 
+    def load_wav(self, path):
+        """A wav file as float32 mono at the configured rate: integer PCM
+        scaled to [-1, 1), channels averaged, resampled (polyphase) when
+        the file's rate differs."""
+        sr, wav = wavfile.read(path)
+        if wav.dtype == np.int16:
+            wav = wav.astype(np.float32) / 32768.0
+        elif wav.dtype == np.int32:
+            wav = wav.astype(np.float32) / 2147483648.0
+        elif wav.dtype == np.uint8:
+            wav = (wav.astype(np.float32) - 128.0) / 128.0
+        else:
+            wav = wav.astype(np.float32)
+        if wav.ndim > 1:
+            wav = wav.mean(axis=1)
+        if sr != self.sample_rate:
+            g = np.gcd(int(self.sample_rate), int(sr))
+            wav = sp_signal.resample_poly(wav, self.sample_rate // g, sr // g)
+        return wav.astype(np.float32)
+
     def save_wav(self, wav, path):
         wav = np.asarray(wav)
         wav = wav * 32767 / max(0.01, np.max(np.abs(wav)))
@@ -67,8 +139,8 @@ class AudioProcessor:
     # -- feature extraction ---------------------------------------------------
 
     def _features_padded(self, y):
-        """(..., T') pre-emphasised, padded signals -> (linear (..., n, F),
-        mel (..., n, M)), both normalised to [0, 1]."""
+        """(..., T') pre-emphasised signals with their analysis padding ->
+        (linear (..., n, F), mel (..., n, M)), both normalised to [0, 1]."""
         mld, rld = float(self.min_level_db), float(self.ref_level_db)
         window = torch.from_numpy(self.window_np).to(y.device)
         mel_w = torch.from_numpy(self.mel_filters_np).to(y.device)
@@ -79,8 +151,11 @@ class AudioProcessor:
 
     def _features(self, y, device):
         y = torch.as_tensor(np.asarray(y, np.float32)).to(device)
-        e = dsp.lws_pad(dsp.preemphasis(y, self.preemphasis_coef),
-                        self.fft_size, self.hop_size)
+        e = dsp.preemphasis(y, self.preemphasis_coef)
+        if self.centered:
+            e = dsp.reflect_pad(e, self.fft_size // 2)
+        else:
+            e = dsp.lws_pad(e, self.fft_size, self.hop_size)
         linear, mel = self._features_padded(e)
         return linear.cpu().numpy(), mel.cpu().numpy()
 
@@ -97,21 +172,31 @@ class AudioProcessor:
         return self._features(y, device)                 # (n, F), (n, M)
 
     def num_frames(self, length):
-        """Frame count of the lws framing: ceil(length / hop)."""
+        """Frame count of the active framing: lws ceil(length / hop),
+        center 1 + length // hop."""
+        if self.centered:
+            return dsp.num_frames(length, self.fft_size, self.hop_size)
         return dsp.lws_num_frames(length, self.hop_size)
 
     def batch_features(self, wavs, bucket_samples=16384, device="cuda"):
         """Features of a list of ragged waveforms in one batched pass: the
-        host applies pre-emphasis and the lws tail pad per utterance and
-        zero-pads to a common length (rounded up to `bucket_samples`); the
-        device computes every frame. Returns [(linear (n_i, F), mel (n_i,
-        M))], exact per utterance (a causal frame of utterance i reads only
-        its samples and trailing zeros)."""
+        host applies pre-emphasis and each utterance's analysis padding
+        (lws: the zero tail pad; center: a reflect pad of fft // 2 on both
+        sides) and zero-pads to a common length (rounded up to
+        `bucket_samples`); the device computes every frame. Returns
+        [(linear (n_i, F), mel (n_i, M))], exact per utterance (utterance
+        i's frames read only its padded samples, and the frames past n_i
+        are dropped)."""
+        pad = self.fft_size // 2
         prepped, n_frames = [], []
         for w in wavs:
             e = np.asarray(w, np.float32)
             e = np.concatenate([e[:1], e[1:] - self.preemphasis_coef * e[:-1]])
-            prepped.append(dsp.lws_pad(e, self.fft_size, self.hop_size))
+            if self.centered:
+                e = np.pad(e, (pad, pad), mode="reflect")
+            else:
+                e = dsp.lws_pad(e, self.fft_size, self.hop_size)
+            prepped.append(e)
             n_frames.append(self.num_frames(len(w)))
         max_len = max(len(p) for p in prepped)
         max_len = -(-max_len // bucket_samples) * bucket_samples
@@ -124,26 +209,33 @@ class AudioProcessor:
 
     # -- inversion ------------------------------------------------------------
 
-    def _denormalize(self, S):
-        """Normalized [0, 1] -> dB (tensor in, tensor out)."""
-        return dsp.denormalize(S, self.min_level_db)
-
     def _denorm_pow(self, spec):
         S = dsp.db_to_amp(dsp.denormalize(spec, self.min_level_db)
                           + self.ref_level_db)
         return S ** self.power
 
-    def inv_preemphasis(self, x):
-        return dsp.inv_preemphasis(x, self.preemphasis_coef)
+    def phase_retrieval_device(self, S):
+        """(B, n, F) f32 magnitudes (already raised to `power`) -> (B, n *
+        hop) waveform before inverse pre-emphasis, on the magnitudes'
+        device, by `inversion_route` (counted in `routes`)."""
+        route = self.inversion_route
+        self.routes[route] = self.routes.get(route, 0) + 1
+        fft, hop = self.fft_size, self.hop_size
+        if route == "lws":
+            return lws_phase.lws_run(S, fft, hop, self.window_np,
+                                     n_iters=self.gl_iters,
+                                     center=self.centered)
+        kw = dict(n_iters=self.gl_iters, momentum=self.gl_momentum,
+                  phase_init=self.gl_phase_init, mats=self.mats(S.device),
+                  center=self.centered)
+        if route == "b2":
+            return gl_cuda.griffin_lim(S, fft, hop, self.window_np, **kw)
+        return dsp.griffin_lim(S, fft, hop, self.window_np, **kw)
 
     def inv_spectrogram_device(self, spec_bnf):
         """(B, n, F) normalized linear tensor -> (B, n * hop) waveform
         tensor on the same device."""
-        S = self._denorm_pow(spec_bnf.float())
-        wav = gl_cuda.griffin_lim(
-            S, self.fft_size, self.hop_size, self.window_np,
-            n_iters=self.gl_iters, momentum=self.gl_momentum,
-            phase_init=self.gl_phase_init, mats=self.mats(S.device))
+        wav = self.phase_retrieval_device(self._denorm_pow(spec_bnf.float()))
         return self.inv_preemphasis(wav)
 
     def inv_spectrogram_batch(self, spec_bnf):
@@ -155,3 +247,23 @@ class AudioProcessor:
         """(F, n) normalized linear, like the reference -> numpy (T,)."""
         spec = torch.as_tensor(np.asarray(spectrogram, np.float32)).T
         return self.inv_spectrogram_batch(spec[None])[0]
+
+    # -- scalar helpers (tensor in, tensor out; array in, array out) ---------
+
+    @_tensor_or_numpy
+    def _normalize(self, S):
+        """dB -> [0, 1]."""
+        return dsp.normalize(S, self.min_level_db)
+
+    @_tensor_or_numpy
+    def _denormalize(self, S):
+        """[0, 1] -> dB."""
+        return dsp.denormalize(S, self.min_level_db)
+
+    @_tensor_or_numpy
+    def preemphasis(self, x):
+        return dsp.preemphasis(x, self.preemphasis_coef)
+
+    @_tensor_or_numpy
+    def inv_preemphasis(self, x):
+        return dsp.inv_preemphasis(x, self.preemphasis_coef)

@@ -13,7 +13,14 @@ operands with f32 accumulation, f32 overlap-add times the pre-inverted
 normaliser, bf16 re-framed chunks, momentum in f32 against the bf16 previous
 projection, projection by rsqrt(a^2 + 1e-30), bf16 carries, and SPSI
 increments wrapped mod 2 pi before the frame cumsum. Framing needs
-hop | fft_size; other hops raise.
+hop | fft_size; other hops raise (dsp/stft.py `griffin_lim` takes them).
+The iteration re-frames the untrimmed overlap-add signal, so it is the same
+for both framings of dsp/audio.py: `center` picks only the final trim (the
+lws framing keeps samples [0, hop n); the centred one drops the fft // 2
+samples of its analysis padding first), and the window (the lws-normalised
+sqrt of a symmetric Hann, or the centred framing's periodic sqrt-Hann)
+reaches the kernel only through the folded DFT operands and the
+pre-inverted overlap-add normaliser.
 
 Options, as `griffin_lim_pallas` has them:
   * fold_windows (default True): the windows folded into the bf16 DFT
@@ -29,10 +36,10 @@ Options, as `griffin_lim_pallas` has them:
     streaming window (`anchored_start`), computed in the kernel; the context
     frames are pinned.
 The kernel counts its launches by mode in `KERNEL.by_entry`: "batch",
-"init" (a start without pinned frames), "pinned" (n_pinned > 0) and
-"unfolded"; and by route in `KERNEL.by_route`. Route and tiles come
-from the shape alone (`gl_plan`); the DFT operands are built once per `mats`
-(`gl_operands`). `_griffin_lim_cuda` also takes a forced `plan` and a
+"init" (a start without pinned frames), "pinned" (n_pinned > 0),
+"unfolded" and "center" (any call with center=True); and by route in
+`KERNEL.by_route`. Route and tiles come from the shape alone (`gl_plan`);
+the DFT operands are built once per `mats` (`gl_operands`). `_griffin_lim_cuda` also takes a forced `plan` and a
 `trace` of per-step stamps; only measurements use them. Its window route
 with `one_launch=False` (a launch a step) is the alternative that the one
 cooperative launch was measured against, and the card test's witness that
@@ -70,13 +77,11 @@ def ola_norm(n_frames, fft_size, hop, window):
 def gl_mats(fft_size, window, device=None, fold=True):
     """bf16 DFT matrices: (m0, m1) (fft, F) forward re/im, (m2, m3) (F, fft)
     inverse re/im. fold: the analysis window on the forward rows and the
-    synthesis window on the inverse columns."""
-    mats = [torch.from_numpy(m) for m in dsp.dft_mats(fft_size)]
+    synthesis window on the inverse columns (`stft.griffin_lim_mats`)."""
     if fold:
-        w = torch.from_numpy(np.asarray(window, np.float32))
-        mats = (mats[0] * w[:, None], mats[1] * w[:, None],
-                mats[2] * w[None, :], mats[3] * w[None, :])
-    return tuple(m.to(torch.bfloat16).to(device) for m in mats)
+        return dsp.griffin_lim_mats(fft_size, window, device)
+    return tuple(torch.from_numpy(m).to(torch.bfloat16).to(device)
+                 for m in dsp.dft_mats(fft_size))
 
 
 def _check_shapes(magnitude, fft_size, hop):
@@ -117,8 +122,10 @@ def _check_modes(magnitude, init_spec, n_pinned, phase_init="spsi",
                              "with 0 < n_ctx <= n, got %s" % (shape,))
 
 
-def _mode(given, n_pinned, fold_windows):
+def _mode(given, n_pinned, fold_windows, center=False):
     """Launch-count key of a call; given: a start other than zero or SPSI."""
+    if center:
+        return "center"
     if not fold_windows:
         return "unfolded"
     if n_pinned:
@@ -231,10 +238,11 @@ def gl_operands(mats):
 def griffin_lim(magnitude, fft_size, hop, window, *, n_iters=16,
                 momentum=0.9, phase_init="spsi", mats=None, init_spec=None,
                 n_pinned=0, return_spec=False, fold_windows=True,
-                context_spec=None):
-    """(B, n, F) or (n, F) magnitudes -> (B, n * hop) / (n * hop,) waveform
-    on the lws framing convention (sample 0 = frame 0, tap 0); with
-    return_spec, (waveform, (re, im)) with the final (B, n, F) carry.
+                context_spec=None, center=False):
+    """(B, n, F) or (n, F) magnitudes -> (B, n * hop) / (n * hop,) waveform;
+    with return_spec, (waveform, (re, im)) with the final (B, n, F) carry.
+    center=False: the lws framing (sample 0 = frame 0, tap 0); True: the
+    centred framing, whose first fft_size // 2 samples are dropped.
 
     window: numpy (fft,) analysis/synthesis window. mats: `gl_mats(...,
     fold=fold_windows)` on the magnitudes' device, built here when None.
@@ -260,12 +268,14 @@ def griffin_lim(magnitude, fft_size, hop, window, *, n_iters=16,
     if dev == "cpu":
         res = griffin_lim_plain(magnitude, fft_size, hop, window, **kw)
     elif dev == "cuda":
-        res = _griffin_lim_cuda(magnitude, fft_size, hop, window, **kw)
+        res = _griffin_lim_cuda(magnitude, fft_size, hop, window,
+                                center=center, **kw)
     else:
         raise ValueError("griffin_lim: unsupported device %s"
                          % magnitude.device)
     wav, spec = res if return_spec else (res, None)
-    wav = wav[:, :hop * magnitude.shape[1]]
+    lo = fft_size // 2 if center else 0
+    wav = wav[:, lo:lo + hop * magnitude.shape[1]]
     if squeeze:
         wav = wav[0]
         spec = None if spec is None else tuple(a[0] for a in spec)
@@ -398,14 +408,16 @@ def _ptr(t):
 def _griffin_lim_cuda(magnitude, fft_size, hop, window, *, mats, n_iters=16,
                       momentum=0.9, phase_init="spsi", init_spec=None,
                       n_pinned=0, return_spec=False, fold_windows=True,
-                      context_spec=None, plan=None, trace=None):
+                      context_spec=None, plan=None, trace=None,
+                      center=False):
     """The kernel on (B, n, F) CUDA magnitudes (`griffin_lim` checks the
     arguments first; measurements call this directly): the untrimmed (B, (n + k - 1) * hop) waveform, and with return_spec the
     final carry. plan: the route and tiles (`gl_plan` of the shape when
     None). trace: on the window route, a zeroed (3 n_iters + 4, 1024, 2)
     int64 tensor that receives, for each of the first 1024 blocks, the
     globaltimer (ns) at the start and the end of each step and, in the last
-    row, the block's SM (a block that did not run keeps zeros)."""
+    row, the block's SM (a block that did not run keeps zeros). center:
+    the caller trims the centred framing's padding (counted as "center")."""
     if fft_size % 64 or hop % 4 or fft_size // hop > 4:
         raise ValueError("the CUDA Griffin-Lim needs fft_size % 64 == 0, "
                          "hop % 4 == 0 and fft_size / hop <= 4 (got %d, %d)"
@@ -480,7 +492,7 @@ def _griffin_lim_cuda(magnitude, fft_size, hop, window, *, mats, n_iters=16,
                                     dev.index or 0)
     KERNEL.check(rc, "griffin_lim launch")
     KERNEL.launched(_mode(init in ("given", "anchored"), n_pinned,
-                          fold_windows), plan.route)
+                          fold_windows, center), plan.route)
     wav = out.reshape(B, nb * hop)
     return (wav, (spec_re, spec_im)) if return_spec else wav
 

@@ -4,7 +4,10 @@ deepvoice3_pytorch_tpu/dsp/stft.py.
 
 Host-side constants (windows, mel basis, DFT matrices) are the JAX
 package's numpy code; the tensor functions take and return torch tensors on
-any device. The Griffin-Lim loop itself lives in dsp/gl_cuda.py.
+any device. Two framings: "lws" (causal frames over a zero tail pad,
+`lws_pad`) and "center" (reflect-padded by fft // 2 on both sides). The
+Griffin-Lim of kernel B2 (hop | fft) lives in dsp/gl_cuda.py; `griffin_lim`
+here is the JAX package's XLA loop for any hop, in plain PyTorch.
 """
 
 import math
@@ -16,6 +19,16 @@ import torch
 # ---------------------------------------------------------------------------
 # windows / mel basis (host-side constants)
 # ---------------------------------------------------------------------------
+
+
+def hann_window(n, dtype=np.float32):
+    """Periodic Hann (scipy.signal.get_window('hann', n))."""
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(dtype)
+
+
+def sqrt_hann_window(n, dtype=np.float32):
+    """The centred framing's analysis / synthesis window."""
+    return np.sqrt(hann_window(n, np.float64)).astype(dtype)
 
 
 def hann_window_symmetric(n, dtype=np.float64):
@@ -94,13 +107,19 @@ def dft_mats(fft_size, dtype=np.float32):
 
 
 # ---------------------------------------------------------------------------
-# framing / forward STFT (lws convention: causal frames, zero tail pad)
+# framing / forward STFT / inverse STFT
 # ---------------------------------------------------------------------------
 
 
 def lws_num_frames(length, hop):
     """ceil(length / hop): every sample covered, no centering."""
     return -(-length // hop)
+
+
+def num_frames(length, fft_size, hop):
+    """Frame count of a centred STFT over a length-`length` signal."""
+    del fft_size
+    return 1 + length // hop
 
 
 def lws_pad(x, fft_size, hop):
@@ -115,16 +134,100 @@ def lws_pad(x, fft_size, hop):
     return torch.nn.functional.pad(x, (0, need - T))
 
 
-def stft(x, fft_size, hop, window):
-    """(..., T) -> complex (..., n_frames, fft_size//2+1): causal frames of
-    an already padded signal (lws_pad)."""
-    frames = x.unfold(-1, fft_size, hop) * window
+def reflect_pad(x, pad):
+    """Reflect-pad the last axis by `pad` on both sides, for any length: a
+    pad longer than the signal keeps reflecting (np.pad's and jnp.pad's
+    mode="reflect"; torch's reflect pad needs pad < length). A gather, so it
+    runs on any device and any number of leading axes."""
+    T = x.shape[-1]
+    i = torch.arange(-pad, T + pad, device=x.device)
+    if T == 1:
+        i = torch.zeros_like(i)
+    else:
+        period = 2 * (T - 1)
+        i = torch.remainder(i, period)
+        i = torch.where(i >= T, period - i, i)
+    return x[..., i]
+
+
+def frame(x, fft_size, hop, center=False):
+    """(..., T) -> (..., n_frames, fft_size) views; center reflect-pads by
+    fft_size // 2 on both sides first (librosa-style)."""
+    if center:
+        x = reflect_pad(x, fft_size // 2)
+    return x.unfold(-1, fft_size, hop)
+
+
+def stft(x, fft_size, hop, window, center=False):
+    """(..., T) -> complex (..., n_frames, fft_size//2+1). center=False:
+    causal frames of an already padded signal (lws_pad, or a reflect pad
+    applied per utterance by the caller); center=True: the centred framing
+    (n_frames = 1 + T // hop)."""
+    frames = frame(x, fft_size, hop, center) * window
     return torch.fft.rfft(frames, n=fft_size, dim=-1)
+
+
+def overlap_add(frames, fft_size, hop):
+    """(..., n_frames, fft_size) -> (..., (n_frames - 1) * hop + fft_size):
+    frame i added at sample i * hop. hop | fft_size: k shifted block adds in
+    frame-chunk order (the JAX package's reshape branch); any other hop: a
+    fold (col2im: each output sample sums its frames in one thread, so the
+    card's sums are deterministic)."""
+    *lead, n, _ = frames.shape
+    if fft_size % hop == 0:
+        k = fft_size // hop
+        chunks = frames.reshape(*lead, n, k, hop)
+        y = frames.new_zeros(*lead, n + k - 1, hop)
+        for c in range(k):
+            y[..., c:c + n, :] += chunks[..., :, c, :]
+        return y.reshape(*lead, (n + k - 1) * hop)
+    T = (n - 1) * hop + fft_size
+    cols = frames.reshape(-1, n, fft_size).transpose(1, 2)
+    y = torch.nn.functional.fold(cols, (1, T), (1, fft_size),
+                                 stride=(1, hop))
+    return y.reshape(*lead, T)
+
+
+def ola_raw(frames, fft_size, hop, window):
+    """Overlap-add of windowed frames divided by the overlap-add of the
+    squared window (at least 1e-8), untrimmed: frame i covers samples
+    [i * hop, i * hop + fft_size). window: a tensor on the frames' device."""
+    y = overlap_add(frames, fft_size, hop)
+    wsq = (window * window).expand(frames.shape[-2], fft_size)
+    norm = overlap_add(wsq, fft_size, hop)
+    return y / torch.clamp_min(norm, 1e-8)
+
+
+def istft(spec, fft_size, hop, window, length=None, center=False):
+    """Inverse STFT: complex (..., n_frames, fft_size//2+1) -> (..., T),
+    windowed overlap-add over the squared window's. center=True drops the
+    fft_size // 2 samples of the centred analysis padding; center=False is
+    the lws framing (sample 0 = frame 0, tap 0). T is `length`, else
+    hop * n_frames."""
+    frames = torch.fft.irfft(spec, n=fft_size, dim=-1) * window
+    y = ola_raw(frames, fft_size, hop, window)
+    if center:
+        y = y[..., fft_size // 2:]
+    return y[..., :hop * spec.shape[-2] if length is None else length]
 
 
 # ---------------------------------------------------------------------------
 # SPSI phase start
 # ---------------------------------------------------------------------------
+
+
+def _interpolated_bins(m):
+    """k + p: each bin's index plus the parabolic peak offset p in [-1/2,
+    1/2] of its magnitude triplet (0 where the triplet is flat)."""
+    left = torch.cat([m[..., :1], m[..., :-1]], dim=-1)
+    right = torch.cat([m[..., 1:], m[..., -1:]], dim=-1)
+    denom = left - 2.0 * m + right
+    big = torch.abs(denom) > 1e-12
+    p = torch.where(big, 0.5 * (left - right)
+                    / torch.where(big, denom, torch.ones_like(denom)),
+                    torch.zeros_like(denom))
+    p = torch.clamp(p, -0.5, 0.5)
+    return torch.arange(m.shape[-1], dtype=m.dtype, device=m.device) + p
 
 
 def spsi_phase(magnitude, fft_size, hop):
@@ -139,17 +242,8 @@ def spsi_phase(magnitude, fft_size, hop):
     and rounds each frame's phase to f32, on every device: what torch's CPU
     cumsum of f32 does, and what kernel B2 does (csrc/griffin_lim.cu).
     magnitude (..., n, F) f32."""
-    m = magnitude
-    left = torch.cat([m[..., :1], m[..., :-1]], dim=-1)
-    right = torch.cat([m[..., 1:], m[..., -1:]], dim=-1)
-    denom = left - 2.0 * m + right
-    big = torch.abs(denom) > 1e-12
-    p = torch.where(big, 0.5 * (left - right)
-                    / torch.where(big, denom, torch.ones_like(denom)),
-                    torch.zeros_like(denom))
-    p = torch.clamp(p, -0.5, 0.5)
-    k = torch.arange(m.shape[-1], dtype=m.dtype, device=m.device)
-    omega = (2.0 * np.pi * hop / fft_size) * (k + p)          # rad / frame
+    kp = _interpolated_bins(magnitude)
+    omega = (2.0 * np.pi * hop / fft_size) * kp               # rad / frame
     two_pi = float(np.float32(2.0 * np.pi))
     # divided by a tensor: by a Python number the card multiplies by the
     # reciprocal, and the floor of a quotient near an integer would differ
@@ -157,6 +251,92 @@ def spsi_phase(magnitude, fft_size, hop):
     omega = omega - two_pi * torch.floor(
         omega / torch.full_like(omega[..., :1, :1], two_pi))
     return torch.cumsum(omega.double(), dim=-2).to(omega.dtype)
+
+
+def spsi_phase_unwrapped(magnitude, fft_size, hop):
+    """The JAX package's XLA-loop SPSI start (its `stft.spsi_phase`): the
+    same interpolated per-bin frequencies as `spsi_phase`, integrated
+    without the wrap mod 2 pi, hop * omega summed over frames (in f64,
+    rounded to f32 per frame, on every device)."""
+    omega = 2.0 * np.pi * _interpolated_bins(magnitude) / fft_size
+    return torch.cumsum((hop * omega).double(), dim=-2).to(magnitude.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Griffin-Lim for any hop (the JAX package's XLA loop, bf16 carry)
+# ---------------------------------------------------------------------------
+
+
+def griffin_lim_mats(fft_size, window, device=None):
+    """The loop's bf16 DFT operands: the analysis window on the forward
+    rows, the synthesis window on the inverse columns, folded in f32 and
+    rounded once (what `gl_cuda.gl_mats` gives)."""
+    w = torch.from_numpy(np.asarray(window, np.float32))
+    m0, m1, m2, m3 = (torch.from_numpy(m) for m in dft_mats(fft_size))
+    return tuple(m.to(torch.bfloat16).to(device) for m in (
+        m0 * w[:, None], m1 * w[:, None], m2 * w[None, :], m3 * w[None, :]))
+
+
+def griffin_lim(magnitude, fft_size, hop, window, *, n_iters=16,
+                momentum=0.9, phase_init="spsi", center=False, length=None,
+                mats=None):
+    """Momentum Griffin-Lim for any hop, on any device: the JAX package's
+    `stft.griffin_lim` at its shipped defaults (griffin_lim_carry_dtype
+    "bfloat16", no matmul dtype): the carry, the synthesised frames and
+    the re-framed signal in bf16, every DFT product a bf16 x bf16 matmul
+    summed in f32, momentum and the magnitude projection in f32, the last
+    synthesis in f32. The loop re-frames the untrimmed overlap-add signal,
+    so it is the same for both framings: center only picks the trim
+    (True drops fft_size // 2 samples). Overlap-add is `overlap_add` (a
+    fold when hop does not divide fft_size), summed in f32 and rounded to
+    bf16 once.
+
+    magnitude (..., n, F); window numpy (fft,); phase_init "spsi" (the
+    unwrapped start, `spsi_phase_unwrapped`) or "zero"; mats:
+    `griffin_lim_mats` on the magnitudes' device. Returns (..., T)."""
+    if phase_init not in ("spsi", "zero"):
+        raise ValueError("phase_init must be 'spsi' or 'zero'")
+    bf16 = torch.bfloat16
+    S = magnitude.float()
+    dev = S.device
+    if mats is None:
+        mats = griffin_lim_mats(fft_size, window, dev)
+    m_fwd_re, m_fwd_im, m_inv_re, m_inv_im = (m.float() for m in mats)
+    win = torch.from_numpy(np.asarray(window, np.float32)).to(dev)
+    n = S.shape[-2]
+    wsq = (win * win).expand(n, fft_size)
+    inv_norm = 1.0 / torch.clamp_min(overlap_add(wsq, fft_size, hop), 1e-8)
+    inv_norm_c = inv_norm.to(bf16).float()
+    eps = 1e-16
+
+    def synth(c_re, c_im):
+        return c_re.float() @ m_inv_re + c_im.float() @ m_inv_im
+
+    def project(c_re, c_im):
+        frames = synth(c_re, c_im).to(bf16)
+        ola = overlap_add(frames.float(), fft_size, hop).to(bf16)
+        x = (ola.float() * inv_norm_c).to(bf16)
+        f2 = x.float().unfold(-1, fft_size, hop)
+        return f2 @ m_fwd_re, f2 @ m_fwd_im
+
+    if phase_init == "spsi":
+        phi = spsi_phase_unwrapped(S, fft_size, hop)
+        c_re = (S * torch.cos(phi)).to(bf16)
+        c_im = (S * torch.sin(phi)).to(bf16)
+    else:
+        c_re, c_im = S.to(bf16), torch.zeros_like(S, dtype=bf16)
+    tp_re = tp_im = torch.zeros_like(S, dtype=bf16)
+    for _ in range(n_iters):
+        t_re, t_im = project(c_re, c_im)
+        a_re = t_re + momentum * (t_re - tp_re.float())
+        a_im = t_im + momentum * (t_im - tp_im.float())
+        mag = torch.clamp_min(torch.sqrt(a_re * a_re + a_im * a_im), eps)
+        c_re, c_im = (S * a_re / mag).to(bf16), (S * a_im / mag).to(bf16)
+        tp_re, tp_im = t_re.to(bf16), t_im.to(bf16)
+    y = overlap_add(synth(c_re, c_im), fft_size, hop) * inv_norm
+    if center:
+        y = y[..., fft_size // 2:]
+    return y[..., :hop * n if length is None else length]
 
 
 # ---------------------------------------------------------------------------

@@ -110,8 +110,9 @@ def default_hparams():
         compute_dtype="float32",
         stft_mode="lws",            # "lws": causal framing, PR-normalized
                                     # sqrt-Hann; "center": librosa-style
-        phase_retrieval="gl",       # "gl" momentum Griffin-Lim; "lws" is
-                                    # not ported
+                                    # reflect-padded, periodic sqrt-Hann
+        phase_retrieval="gl",       # "gl" momentum Griffin-Lim; "lws"
+                                    # local weighted sums (hop | fft)
         griffin_lim_matmul_dtype="",  # JAX XLA-loop knobs; the port runs
         griffin_lim_carry_dtype="bfloat16",  # one bf16-carry schedule
     )

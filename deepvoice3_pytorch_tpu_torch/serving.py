@@ -190,6 +190,7 @@ class _EmitEngine:
 
     def __init__(self, params, cfg, ap, n_slots, chunk_frames, device, *,
                  gl_context, gl_lookahead, xfade, multispeaker):
+        streaming.require_causal_framing(ap)
         self.params, self.cfg, self.ap = params, cfg, ap
         self.S = n_slots
         self.cr = chunk_frames                      # postnet frames / step

@@ -132,6 +132,15 @@ def gl_window(ap, spec, prev_spec, iters):
         phase_init="anchored", context_spec=prev_spec, return_spec=True)
 
 
+def require_causal_framing(ap):
+    """Streaming needs the lws framing: each window's samples start at its
+    first frame. Raise ValueError for the centred one."""
+    if ap.stft_mode != "lws":
+        raise ValueError("streaming needs stft_mode='lws' (causal framing: "
+                         "a window's samples are frame-aligned), got %r"
+                         % (ap.stft_mode,))
+
+
 class StreamingVocoder:
     """Incremental normalized linear spectrogram -> waveform.
 
@@ -149,6 +158,7 @@ class StreamingVocoder:
     pre-emphasis IIR runs over the crossfaded stream on the host."""
 
     def __init__(self, ap, gl_context=16, gl_lookahead=8, xfade=None):
+        require_causal_framing(ap)
         self.ap = ap
         self.hop = ap.hop_size
         self.gl_context = int(gl_context)

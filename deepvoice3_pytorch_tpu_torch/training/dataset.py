@@ -1,6 +1,6 @@
 # coding: utf-8
 """Training data pipeline, counterpart of
-deepvoice3_pytorch_tpu/training/dataset.py (numpy only).
+deepvoice3_pytorch_tpu/training/dataset.py.
 
 Reads the preprocess.py output contract: `train.txt` pipe-delimited metadata
 plus `*-spec-*.npy` (T, 513) / `*-mel-*.npy` (T, 80) pairs. Batches come from
@@ -8,10 +8,12 @@ the partially-randomized similar-length sampler and are collated with the
 reference's padding semantics (r / downsample rounding, b_pad initial frames,
 1-based positions, done flags), padded up to bucket shapes
 (length_bucket_step / frame_bucket_step). `DataLoader` collates in a
-background thread; `training.trainer.batch_to` moves a collated batch onto
-the device. `dsp_config.json`, the DSP stamp, records the audio conventions a
-corpus was preprocessed under, and training refuses a corpus whose stamp
-differs from the active hparams.
+background thread, through the port's C++ loader (`collate_native`,
+native/src/dv3_loader.cc) unless asked for numpy;
+`training.trainer.batch_to` moves a collated batch onto the device.
+`dsp_config.json`, the DSP stamp, records the audio conventions a corpus
+was preprocessed under, and training refuses a corpus whose stamp differs
+from the active hparams.
 """
 
 import json
@@ -222,13 +224,8 @@ def collate(items, r, downsample_step, *, length_bucket_step=1,
     # downsample mel here (train loop does it in the reference)
     mel = mel[:, ::downsample_step, :]
 
-    max_decoder_len = max_target_len // r // downsample_step
-    frame_positions = np.tile(np.arange(1, max_decoder_len + 1),
-                              (B, 1)).astype(np.int32)
-
-    done = np.ones((B, max_decoder_len, 1), np.float32)
-    for i, t in enumerate(target_lengths):
-        done[i, :t // r // downsample_step - 1] = 0.0
+    frame_positions, done = _decoder_fields(target_lengths, max_target_len,
+                                            r, downsample_step, B)
 
     batch = {
         "x": x,
@@ -246,13 +243,101 @@ def collate(items, r, downsample_step, *, length_bucket_step=1,
     return batch
 
 
+def _decoder_fields(target_lengths, max_target_len, r, downsample_step, B):
+    max_decoder_len = max_target_len // r // downsample_step
+    frame_positions = np.tile(np.arange(1, max_decoder_len + 1),
+                              (B, 1)).astype(np.int32)
+    done = np.ones((B, max_decoder_len, 1), np.float32)
+    for i, t in enumerate(target_lengths):
+        done[i, :t // r // downsample_step - 1] = 0.0
+    return frame_positions, done
+
+
+def collate_native(dataset, idxs, r, downsample_step, *,
+                   length_bucket_step=1, frame_bucket_step=1,
+                   max_positions=None, n_threads=0):
+    """`collate` of dataset[idxs] with the .npy reads and the padded copies
+    on the port's C++ loader (native/src/dv3_loader.cc, a thread per file up
+    to n_threads, 0: the hardware's): the same arrays as `collate`. Returns
+    None when a file is not one the C++ reader takes (float32, C order, 1-D
+    or 2-D): the caller collates those with numpy. The library is built on
+    first use; a failed build raises."""
+    from .. import native
+
+    meta = dataset.meta
+    texts = [np.asarray(
+        dataset.frontend.text_to_sequence(meta.texts[i], p=dataset.p),
+        np.int32) for i in idxs]
+    target_lengths = [meta.frame_lengths[i] for i in idxs]
+
+    max_input_len = _round_up(max(len(t) for t in texts), length_bucket_step)
+    max_target_len = _round_up(_round_up(max(target_lengths), r),
+                               downsample_step)
+    b_pad = r
+    max_target_len += b_pad * downsample_step
+    max_target_len = _round_up(max_target_len,
+                               frame_bucket_step * downsample_step * r)
+    if max_positions is not None:
+        dec_len = max_target_len // r // downsample_step
+        if max_input_len >= max_positions or dec_len >= max_positions:
+            raise RuntimeError(
+                "max_seq_len (%d) >= max_positions (%d); raise max_positions"
+                % (max(max_input_len, dec_len), max_positions))
+
+    mel_paths = [join(dataset.data_root, meta.mel_files[i]) for i in idxs]
+    lin_paths = [join(dataset.data_root, meta.spec_files[i]) for i in idxs]
+    probe = native.npy_shape(mel_paths[0])
+    probe_l = native.npy_shape(lin_paths[0])
+    if probe is None or probe_l is None:
+        return None
+    offset = b_pad * downsample_step
+    mel, mrows = native.load_padded_batch(mel_paths, max_target_len,
+                                          probe[1], row_offset=offset,
+                                          n_threads=n_threads)
+    y, lrows = native.load_padded_batch(lin_paths, max_target_len,
+                                        probe_l[1], row_offset=offset,
+                                        n_threads=n_threads)
+    if (mrows < 0).any() or (lrows < 0).any():
+        return None
+
+    B = len(idxs)
+    x = np.zeros((B, max_input_len), np.int32)
+    text_positions = np.zeros((B, max_input_len), np.int32)
+    input_lengths = np.zeros((B,), np.int32)
+    for i, t in enumerate(texts):
+        x[i, :len(t)] = t
+        text_positions[i, :len(t)] = np.arange(1, len(t) + 1)
+        input_lengths[i] = len(t)
+    frame_positions, done = _decoder_fields(target_lengths, max_target_len,
+                                            r, downsample_step, B)
+    batch = {
+        "x": x,
+        "input_lengths": input_lengths,
+        "mel": np.ascontiguousarray(mel[:, ::downsample_step, :]),
+        "y": y,
+        "text_positions": text_positions,
+        "frame_positions": frame_positions,
+        "done": done,
+        "target_lengths": np.asarray(target_lengths, np.int32),
+    }
+    if dataset.multi_speaker:
+        batch["speaker_ids"] = np.asarray(
+            [meta.speaker_ids[i] for i in idxs], np.int32)
+    return batch
+
+
 class DataLoader:
-    """Background-thread prefetching batch iterator over `collate` (numpy;
-    the JAX package's C++ loader is not ported)."""
+    """Background-thread prefetching batch iterator. use_native (default):
+    batches through `collate_native` (a batch it cannot read, numpy's
+    `collate`); num_workers: the C++ loader's read threads (0: one per
+    file up to the hardware's threads; not hparams.num_workers, which
+    counts the reference's worker processes). `batches` counts the batches
+    each route made."""
 
     def __init__(self, dataset, sampler, r, downsample_step, *,
                  length_bucket_step=1, frame_bucket_step=1,
-                 max_positions=None, prefetch=2):
+                 max_positions=None, prefetch=2, use_native=True,
+                 num_workers=0):
         self.dataset = dataset
         self.sampler = sampler
         self.r = r
@@ -261,13 +346,24 @@ class DataLoader:
         self.frame_bucket_step = frame_bucket_step
         self.max_positions = max_positions
         self.prefetch = prefetch
+        self.use_native = use_native
+        self.num_workers = num_workers
+        self.batches = {"native": 0, "numpy": 0}
 
     def _make_batch(self, idxs):
+        kw = dict(length_bucket_step=self.length_bucket_step,
+                  frame_bucket_step=self.frame_bucket_step,
+                  max_positions=self.max_positions)
+        if self.use_native and hasattr(self.dataset, "meta"):
+            batch = collate_native(self.dataset, idxs, self.r,
+                                   self.downsample_step,
+                                   n_threads=self.num_workers, **kw)
+            if batch is not None:
+                self.batches["native"] += 1
+                return batch
+        self.batches["numpy"] += 1
         return collate([self.dataset[i] for i in idxs], self.r,
-                       self.downsample_step,
-                       length_bucket_step=self.length_bucket_step,
-                       frame_bucket_step=self.frame_bucket_step,
-                       max_positions=self.max_positions)
+                       self.downsample_step, **kw)
 
     def __iter__(self):
         q = queue_mod.Queue(maxsize=self.prefetch)

@@ -981,3 +981,72 @@ def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
         for a, b in ((opt_state.mu, state.opt_state.mu),
                      (opt_state.nu, state.opt_state.nu)):
             assert a[k].device == dev and torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("B,n,n_iters,route", [
+    (2, 37, 1, "window"), (1, 152, 1, "window"), (12, 379, 1, "batch"),
+    (12, 379, 0, "batch")])
+def test_griffin_lim_center_kernel_matches_plain(dev, B, n, n_iters, route):
+    """B2 in the centred framing (sqrt-Hann folded, the fft // 2 trim)
+    against the plain version's untrimmed signal from fft // 2 on: 3e-3 of
+    the peak at <= 1 iteration, counted as "center", two runs bit-equal."""
+    g = torch.Generator().manual_seed(1)
+    S = (torch.rand(B, n, 513, generator=g) ** 2).to(dev)
+    win = dsp.sqrt_hann_window(1024)
+    gl_cuda.KERNEL.reset_counts()
+    got = gl_cuda.griffin_lim(S, 1024, 256, win, n_iters=n_iters, center=True)
+    assert gl_cuda.KERNEL.by_entry == {"center": 1}
+    assert gl_cuda.KERNEL.by_route == {route: 1}
+    assert torch.equal(got, gl_cuda.griffin_lim(S, 1024, 256, win,
+                                                n_iters=n_iters, center=True))
+    want = gl_cuda.griffin_lim_plain(S, 1024, 256, win, n_iters=n_iters)[
+        :, 512:512 + n * 256]
+    assert got.shape == want.shape
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= 3e-3, rel
+
+
+@pytest.mark.parametrize("center", [False, True])
+def test_general_griffin_lim_card_matches_cpu(dev, center):
+    """The plain general-hop loop (hop 240) on the card against the CPU:
+    one iteration within 2 bf16 ulps of the peak."""
+    g = torch.Generator().manual_seed(2)
+    S = torch.rand(2, 60, 513, generator=g) ** 2
+    win = (dsp.sqrt_hann_window(1024) if center
+           else dsp.lws_hann_window(1024, 240))
+    got = dsp.griffin_lim(S.to(dev), 1024, 240, win, n_iters=1,
+                          center=center).cpu()
+    want = dsp.griffin_lim(S, 1024, 240, win, n_iters=1, center=center)
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= 2 * 2.0 ** -8, rel
+
+
+def test_lws_run_card_matches_cpu(dev):
+    from deepvoice3_pytorch_tpu_torch.dsp import lws_phase
+
+    g = torch.Generator().manual_seed(3)
+    S = torch.rand(2, 40, 513, generator=g) ** 2
+    win = dsp.lws_hann_window(1024, 256)
+    got = lws_phase.lws_run(S.to(dev), 1024, 256, win, n_iters=3).cpu()
+    want = lws_phase.lws_run(S, 1024, 256, win, n_iters=3)
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= 1e-4, rel
+
+
+@pytest.mark.parametrize("overrides", ["stft_mode=center",
+                                       "sample_rate=16000,hop_size=240"])
+def test_features_card_match_cpu(dev, overrides):
+    """Centred and hop-240 features on the card against the CPU: 1e-5 on
+    average, one value in a thousand beyond 2e-4 (cuFFT against pocketfft
+    in bins near the -100 dB floor)."""
+    from deepvoice3_pytorch_tpu_torch.dsp.audio import AudioProcessor
+    from deepvoice3_pytorch_tpu_torch.hparams import default_hparams
+
+    ap = AudioProcessor(default_hparams().parse(overrides))
+    rs = np.random.RandomState(4)
+    wavs = [(0.3 * rs.randn(n)).astype(np.float32) for n in (300, 9000)]
+    for (lg, mg), (lc, mc) in zip(ap.batch_features(wavs, device=dev),
+                                  ap.batch_features(wavs, device="cpu")):
+        for a, b in ((lg, lc), (mg, mc)):
+            d = np.abs(a - b)
+            assert d.mean() <= 1e-5 and (d > 2e-4).mean() <= 1e-3
