@@ -351,7 +351,7 @@ def plain_cpu_first_hop(torch, S, win, kw, want):
         want.abs().max())
 
 
-def wave_err(got, want, unpinned_edge):
+def wave_err(got, want, unpinned_edge, hop=None):
     """(max abs error, its share of the peak, the first hop's error as a
     share of the whole peak) of a Griffin-Lim waveform. unpinned_edge: a
     call without pinned frames, whose first hop is the overlap-add of one
@@ -360,10 +360,12 @@ def wave_err(got, want, unpinned_edge):
     parts from itself by 0.03-0.34 of the peak between the card, the CPU
     and f64 sums (PERF.md). There the error and the peak are taken over the
     later samples, and the first hop is held only by the spectral
-    convergence of the whole waveform."""
-    lo = HOP if unpinned_edge else 0
+    convergence of the whole waveform. hop: the framing's (HOP when
+    None)."""
+    hop = HOP if hop is None else hop
+    lo = hop if unpinned_edge else 0
     err = maxabs(got[:, lo:], want[:, lo:])
-    first = maxabs(got[:, :HOP], want[:, :HOP]) / float(want.abs().max())
+    first = maxabs(got[:, :hop], want[:, :hop]) / float(want.abs().max())
     return err, err / float(want[:, lo:].abs().max()), first
 
 
@@ -1446,25 +1448,25 @@ def b2_bound_ms(B=32, n=400, fft=1024, hop=256, n_iters=16, planes=0):
 FFT, HOP = 1024, 256
 
 
-def tone_mags(torch, dev, seed, B, n, center=False):
+def tone_mags(torch, dev, seed, B, n, center=False, fft=FFT, hop=HOP):
     """Magnitudes of real signals: harmonic tones with vibrato plus noise,
-    (B, n, 513) at fft 1024, hop 256 (lws framing; center: the centred
-    framing and its sqrt-Hann window)."""
+    (B, n, fft // 2 + 1) at fft 1024, hop 256 unless given (lws framing;
+    center: the centred framing and its sqrt-Hann window)."""
     from deepvoice3_pytorch_tpu_torch.dsp import stft as dsp
 
-    win = dsp.sqrt_hann_window(FFT) if center else \
-        dsp.lws_hann_window(FFT, HOP)
+    win = dsp.sqrt_hann_window(fft) if center else \
+        dsp.lws_hann_window(fft, hop)
     g = torch.Generator().manual_seed(seed)
-    t = torch.arange(n * HOP, dtype=torch.float64) / 22050.0
+    t = torch.arange(n * hop, dtype=torch.float64) / 22050.0
     f0 = 100.0 + 150.0 * torch.rand(B, 1, generator=g, dtype=torch.float64)
     vib = 1.0 + 0.02 * torch.sin(2 * np.pi * 5.0 * t)[None, :]
     phase = 2 * np.pi * torch.cumsum(f0 * vib, dim=1) / 22050.0
     x = sum(torch.sin(h * phase) / h for h in range(1, 8))
-    x = x + 0.01 * torch.randn(B, n * HOP, generator=g, dtype=torch.float64)
+    x = x + 0.01 * torch.randn(B, n * hop, generator=g, dtype=torch.float64)
     x = x.float().to(dev)
     if not center:
-        x = dsp.lws_pad(x, FFT, HOP)
-    return torch.abs(dsp.stft(x, FFT, HOP, torch.from_numpy(win).to(dev),
+        x = dsp.lws_pad(x, fft, hop)
+    return torch.abs(dsp.stft(x, fft, hop, torch.from_numpy(win).to(dev),
                               center=center))[:, :n].contiguous()
 
 
@@ -1593,16 +1595,17 @@ def b2_gemm_ms(torch, fn, n_iters):
 def b2_gemm_library_ms(torch, gl_cuda, mats, B, n):
     """cuBLAS yardstick for one iteration's two GEMMs at (B, n): device ms
     of torch.matmul on the kernel's own bf16 operands (the carry's 2F
-    columns against synT, a16 against anaT; bf16 out)."""
+    columns against synT, a16 against anaT's first fft columns; bf16
+    out)."""
     synT, anaT = gl_cuda.gl_operands(mats)
-    F2 = anaT.shape[0]
+    F2, fft = anaT.shape[0], synT.shape[0]
     g = torch.Generator(device=synT.device).manual_seed(0)
     c = torch.randn(B * n, synT.shape[1], generator=g, device=synT.device,
                     dtype=torch.bfloat16)
-    a16 = torch.randn(B * n, FFT, generator=g, device=synT.device,
+    a16 = torch.randn(B * n, fft, generator=g, device=synT.device,
                       dtype=torch.bfloat16)
     return device_ms(lambda: (torch.matmul(c[:, :F2], synT[:, :F2].t()),
-                              torch.matmul(a16, anaT.t())), torch)
+                              torch.matmul(a16, anaT[:, :fft].t())), torch)
 
 
 def window_steps(torch, dev, call, n_iters):
@@ -1917,14 +1920,173 @@ def check_p(torch, pkg, dev, seed, repo):
 
 
 # ---------------------------------------------------------------------------
+# B2 at framings other than fft 1024 / hop 256 (phase B2_shapes)
+# ---------------------------------------------------------------------------
+
+# (fft, hop) of phase B2_shapes and of dsp_modes' added configurations:
+# k = 8 (fft 1024 / hop 128); 16 kHz at 50 / 12.5 ms (fft 800 / hop 200, fft
+# off 64); 22050 Hz at 50 / 12.5 ms (fft 1100 / hop 275: a hop off 4, fft
+# off 8)
+B2_FRAMINGS = ((1024, 128), (800, 200), (1100, 275))
+# the calls of B2_shapes: (B, n, iterations, windows folded); "stream" is an
+# anchored window with 16 context frames and the spectrum returned
+B2_SHAPE_CALLS = {"batch": (32, 400, 16, True), "stream": (8, 152, 32, True),
+                  "P": (32, 400, 16, False)}
+
+
+def check_b2_framing(torch, dev, seed, fft, hop, call):
+    """B2 at one framing and one of B2_SHAPE_CALLS against its plain
+    version on the card, at phase B2's bars (b2_ok: 0.12 of the peak,
+    after the first hop where no frame is pinned; spectral convergence
+    1.05x the plain version's; pinned frames exact; two runs bit-equal);
+    the route and tiles, both timers of the kernel, the plain version's
+    host-paced ms, the bound (b2_bound_ms at this fft and hop; the stream's
+    returned spectrum and context as planes) and its share. Also the
+    plain version's own floor, `plain_ulp_rel`: how far it parts from
+    itself, by wave_err, when the magnitudes grow by one f32 ulp (2^-23):
+    bf16 Griffin-Lim amplifies any rounding change, and on some inputs
+    that floor exceeds 0.12 (b2_shape_ok)."""
+    from deepvoice3_pytorch_tpu_torch.dsp import gl_cuda
+    from deepvoice3_pytorch_tpu_torch.dsp import stft as dsp
+
+    B, n, iters, fold = B2_SHAPE_CALLS[call]
+    win = dsp.lws_hann_window(fft, hop)
+    S = tone_mags(torch, dev, seed + 11, B, n, fft=fft, hop=hop)
+    kw = dict(n_iters=iters, momentum=0.9, fold_windows=fold,
+              mats=gl_cuda.gl_mats(fft, win, dev, fold=fold))
+    n_ctx, planes = 0, 0.0
+    if call == "stream":
+        # the context: a previous window's retrieved spectrum of the first
+        # 16 frames (the plain version's, so both start from it)
+        n_ctx = 16
+        _, prev = gl_cuda.griffin_lim_plain(
+            S[:, :n_ctx].contiguous(), fft, hop, win, phase_init="anchored",
+            return_spec=True, **kw)
+        kw.update(phase_init="anchored", context_spec=prev,
+                  return_spec=True)
+        planes = 2.0 + 2.0 * n_ctx / n
+    else:
+        kw.update(phase_init="spsi")
+
+    def kernel(iters=iters):
+        return gl_cuda.griffin_lim(S, fft, hop, win, **dict(kw,
+                                                            n_iters=iters))
+
+    def plain(iters=iters):
+        res = gl_cuda.griffin_lim_plain(S, fft, hop, win,
+                                        **dict(kw, n_iters=iters))
+        return (res[0][:, :n * hop], res[1]) if n_ctx else res[:, :n * hop]
+
+    got, want, again = kernel(), plain(), kernel()
+    S_ulp = S * (1.0 + 2.0 ** -23)
+    nudged = gl_cuda.griffin_lim_plain(S_ulp, fft, hop, win,
+                                       **dict(kw, n_iters=iters))
+    nudged = nudged[0] if n_ctx else nudged
+    torch.cuda.synchronize()
+    plan = gl_cuda.gl_plan(B, n, fft, hop)
+    row = {"fft": fft, "hop": hop, "call": call, "shape": [B, n, fft // 2 + 1],
+           "iters": iters, "plan": plan._asdict(),
+           "launches_per_call": gl_cuda.gl_launches(plan, iters, bool(n_ctx)),
+           "unpinned_edge": not n_ctx}
+    if n_ctx:
+        (got, got_spec), (want, want_spec) = got, want
+        starts = (kernel(0)[1], plain(0)[1])
+        row["pinned_exact"] = [
+            all(torch.equal(a[:, :n_ctx], b[:, :n_ctx])
+                for a, b in zip(sp, st))
+            for sp, st in zip((got_spec, want_spec), starts)]
+        row["bit_equal"] = torch.equal(got, again[0]) and all(
+            torch.equal(a, b) for a, b in zip(got_spec, again[1]))
+    else:
+        row["bit_equal"] = torch.equal(got, again)
+    err, rel, first = wave_err(got, want, not n_ctx, hop)
+    row["plain_ulp_rel"] = wave_err(nudged[:, :n * hop], want, not n_ctx,
+                                    hop)[1]
+    row.update(err=err, rel=rel, first_hop_rel=first,
+               sc=spectral_convergence(torch, got, S, fft, hop),
+               sc_plain=spectral_convergence(torch, want, S, fft, hop),
+               bound=b2_bound_ms(B, n, fft, hop, iters, planes=planes))
+    row.update(b2_timed(torch, kernel))
+    row["plain_ms"] = cuda_ms(plain, torch)
+    row["bound_share"] = row["bound"][0] / row["cuda_ms"]
+    if (fft, hop) == B2_FRAMINGS[0] and call == "batch":
+        row["gemm_library_ms"] = b2_gemm_library_ms(torch, gl_cuda,
+                                                    kw["mats"], B, n)
+    return row
+
+
+def b2_shape_bar(row):
+    """B2_shapes' bar on the waveform: phase B2's 0.12 of the peak, or,
+    where the plain version parts from itself by more under a one-ulp
+    change of its magnitudes (`plain_ulp_rel`), 1.5x that floor: the
+    kernel's sums differ from the plain version's in order, a change of
+    the same size, so its divergence is a draw from the same spread."""
+    return max(0.12, 1.5 * row["plain_ulp_rel"])
+
+
+def b2_shape_ok(row):
+    return (row["rel"] < b2_shape_bar(row)
+            and row["sc"] <= 1.05 * row["sc_plain"]
+            and all(row.get("pinned_exact", [True])) and row["bit_equal"])
+
+
+def b2_shape_line(row, card):
+    return ("fft %d / hop %d, %s (%d, %d, %d) x %d%s: max abs err %.3g "
+            "(%.4f of peak%s; the plain version against itself with the "
+            "magnitudes one ulp larger %.4f; bar %.4f), spectral "
+            "convergence kernel %.4f "
+            "plain %.4f (bar 1.05x)%s, two runs bit-equal %s; kernel %.3f "
+            "ms host-paced, %.3f ms device, plain %.3f ms, bound %.4f ms "
+            "(%s, %.3f of the host-paced time)%s; route %s (%d-row tiles, "
+            "%d / %d columns), %d launches a call (%s)" % (
+                row["fft"], row["hop"], row["call"], *row["shape"],
+                row["iters"], ", 16 context frames pinned, spectrum "
+                "returned" if row["call"] == "stream" else
+                ", windows unfolded" if row["call"] == "P" else "",
+                row["err"], row["rel"], " after the first hop; the first "
+                "hop %.4f of the whole peak" % row["first_hop_rel"]
+                if row["unpinned_edge"] else "", row["plain_ulp_rel"],
+                b2_shape_bar(row), row["sc"], row["sc_plain"],
+                ", pinned frames equal to the start (kernel, plain) %s"
+                % row["pinned_exact"] if "pinned_exact" in row else "",
+                row["bit_equal"], row["cuda_ms"], row["device_ms"],
+                row["plain_ms"], row["bound"][0], row["bound"][1],
+                row["bound_share"], "; torch.matmul on the same bf16 "
+                "operands, an iteration's two GEMMs: %.4f ms device"
+                % row["gemm_library_ms"] if "gemm_library_ms" in row else "",
+                row["plan"]["route"], row["plan"]["bm"],
+                row["plan"]["bn_syn"], row["plan"]["bn_ana"],
+                row["launches_per_call"], card))
+
+
+def b2_shapes_phase(torch, dev, seed, card):
+    """Phase B2_shapes: B2 at each of B2_FRAMINGS on the batch shape and an
+    anchored stream window, and P at the first. Returns (ok, rows)."""
+    ok, rows = True, {}
+    for fft, hop in B2_FRAMINGS:
+        calls = ("batch", "stream", "P") if (fft, hop) == B2_FRAMINGS[0] \
+            else ("batch", "stream")
+        for call in calls:
+            row = check_b2_framing(torch, dev, seed, fft, hop, call)
+            rows["%d/%d %s" % (fft, hop, call)] = row
+            phase("B2_shapes", b2_shape_line(row, card))
+            ok &= b2_shape_ok(row)
+    return ok, rows
+
+
+# ---------------------------------------------------------------------------
 # DSP breadth and preprocessing (phases B2_center, dsp_modes, cli_preprocess)
 # ---------------------------------------------------------------------------
 
 # the hparams overrides of phase dsp_modes, on the LJSpeech preset, and the
-# inversion route each must take
+# inversion route each must take; the last three are B2_FRAMINGS
 DSP_MODES = (("center", "stft_mode=center", "b2"),
              ("16k_hop240", "sample_rate=16000,hop_size=240", "general"),
-             ("lws", "phase_retrieval=lws", "lws"))
+             ("lws", "phase_retrieval=lws", "lws"),
+             ("hop128", "hop_size=128", "b2"),
+             ("16k_fft800_hop200", "sample_rate=16000,fft_size=800,"
+              "hop_size=200", "b2"),
+             ("fft1100_hop275", "fft_size=1100,hop_size=275", "b2"))
 
 
 def check_b2_center(torch, dev, seed, B=32, n=400, n_iters=16):
@@ -2057,6 +2219,7 @@ def dsp_mode_run(torch, pkg, hp, dev, seed, card, label, route):
     res, wall = run(SENTENCES)
     two, _ = run(SENTENCES[:2])
     launches = kernel_counts(kernels)
+    b2_routes = dict(gl_cuda.KERNEL.by_route)
     routes = dict(ap.routes)
     steps = [r["num_decoder_steps"] for r in res]
     bad = [i for i, r in enumerate(res) if r["waveform"].shape != (
@@ -2082,7 +2245,7 @@ def dsp_mode_run(torch, pkg, hp, dev, seed, card, label, route):
                                    r["waveform"], lin))
     row = {"wall_ms": wall, "audio_s": audio_s, "rtf": audio_s / wall * 1e3,
            "decoded_steps_min_max": [min(steps), max(steps)],
-           "routes": routes, "route_ms": route_ms,
+           "routes": routes, "route_ms": route_ms, "b2_routes": b2_routes,
            "batch_shape": list(S.shape), "launches": launches,
            "cpu_steps": [r["num_decoder_steps"] for r in two_cpu],
            "card_steps": [r["num_decoder_steps"] for r in two],
@@ -2103,15 +2266,158 @@ def dsp_mode_run(torch, pkg, hp, dev, seed, card, label, route):
           and sum(launches["fused_decode"].values()) > 0
           and not launches["conv_taps"]
           and (sum(launches["griffin_lim"].values()) > 0) == (route == "b2"))
-    if route == "b2":
-        ok &= set(launches["griffin_lim"]) == {"center"}
+    if route == "b2":   # two B2 calls in the framing's mode
+        ok &= set(launches["griffin_lim"]) == {
+            "center" if ap.stft_mode == "center" else "batch"}
+        ok &= sum(b2_routes.values()) == 2
     phase("dsp_modes", "%s: %s (bars: the route %s, decoded steps on the "
           "card and the CPU exact, spectral convergence of the card's audio "
           "1.05x the CPU's, features card against CPU 1e-5 on average "
           "and one value in a thousand beyond 2e-4, B1 launched%s) (%s)" % (
-              label, json.dumps(row), route, ", B2 in its centred mode"
+              label, json.dumps(row), route, (", B2 in its %s mode" % (
+                  "centred" if ap.stft_mode == "center" else "batch"))
               if route == "b2" else ", B2 not", card))
     return ok, row, launches
+
+
+# ---------------------------------------------------------------------------
+# streams and serving at a hop that does not divide the FFT size (phase
+# stream_general_hop)
+# ---------------------------------------------------------------------------
+
+
+def stream_general_hop_phase(torch, pkg, repo, dev, seed, card, extra_hp=""):
+    """Phase stream_general_hop at the LJSpeech preset's full width under
+    `sample_rate=16000,hop_size=240` (seeded random weights): tts_stream at
+    B = 1 and 8 (stream_rows), every window on the general-hop route
+    (counted in ap.routes; B2 not launched, B1 launched); two sentences
+    streamed on the card and on the CPU (decoded steps and chunk sizes
+    exact, the card's audio within 1.05x of the CPU's spectral
+    convergence); the ContinuousBatcher with 8 requests 50 ms apart on 8
+    slots (cb_main_path); then one B = 1 stream at fft 1024 / hop 128,
+    whose windows take B2's window route at k = 8. TF32 for f32 matmuls
+    must be off throughout (the general loop's products are f32). Returns
+    (ok, rows, launches {part: {kernel: by entry}})."""
+    from deepvoice3_pytorch_tpu_torch.dsp import gl_cuda
+    from deepvoice3_pytorch_tpu_torch.ops import conv_cuda
+    from deepvoice3_pytorch_tpu_torch.ops import fused_decode as fd
+
+    kernels = (("fused_decode", fd.KERNEL), ("griffin_lim", gl_cuda.KERNEL),
+               ("conv_taps", conv_cuda.KERNEL))
+    hparams, streaming, en = pkg["hparams"], pkg["streaming"], pkg["en"]
+    hp = ljspeech_hparams(hparams, repo)
+    hp.parse(",".join(s for s in (extra_hp, "sample_rate=16000,"
+                                  "hop_size=240") if s))
+    cfg, params = pkg["model_builder"].build_model(hp, en.n_vocab, seed=seed,
+                                                   device=dev)
+    ap = pkg["AudioProcessor"](hp)
+    rows, launches, ok = {"window_route": ap.window_route}, {}, True
+    rows["tf32"] = bool(torch.backends.cuda.matmul.allow_tf32)
+    for _, k in kernels:
+        k.reset_counts()
+    ap.routes.clear()
+    for B in (1, 8):
+        rows["B%d" % B] = stream_rows(torch, streaming, params, cfg, ap, en,
+                                      B)
+        phase("stream_general_hop", "16 kHz / hop 240, B=%d: ttfa_ms %.3f "
+              "(best of 5: %s), stream %.3f ms for %.3f s of decoded audio, "
+              "RTF %.2fx, %d chunks, decoded steps %s (%s)" % (
+                  B, rows["B%d" % B]["ttfa_ms"],
+                  rows["B%d" % B]["ttfa_ms_all"],
+                  rows["B%d" % B]["stream_total_ms"],
+                  rows["B%d" % B]["audio_s"], rows["B%d" % B]["rtf"],
+                  rows["B%d" % B]["chunks"],
+                  rows["B%d" % B]["decoded_steps"], card))
+    launches["streams"] = kernel_counts(kernels)
+    rows["routes"] = dict(ap.routes)
+    ok &= (set(rows["routes"]) == {"general"}
+           and not launches["streams"]["griffin_lim"]
+           and sum(launches["streams"]["fused_decode"].values()) > 0
+           and not launches["streams"]["conv_taps"] and not rows["tf32"])
+    # one window alone, (B, 152) frames after 16 of context, 32 iterations:
+    # both timers, and its device kernels by name (torch.profiler)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for B in (1, 8):
+        spec = torch.rand(B, 152, ap.fft_size // 2 + 1, device=dev,
+                          generator=g)
+        prev = streaming.gl_window(ap, spec[:, :16], None, 32)[1]
+
+        def window():
+            return streaming.gl_window(ap, spec, prev, 32)
+
+        row = b2_timed(torch, window)
+        prof = profile_device(torch, window, 1, row["cuda_ms"])
+        row.update(launches=prof["launches"], busy_share=prof["busy_share"],
+                   top=prof["top"][:6])
+        rows["window_B%d" % B] = row
+        phase("stream_general_hop", "one general-route window (%d, 152, "
+              "513) x 32 after 16 context frames: %.3f ms host-paced, "
+              "%.3f ms device, %.0f device launches (%.1f an iteration), "
+              "busy %.3f; top device time [ms, launches, name]: %s (%s)"
+              % (B, row["cuda_ms"], row["device_ms"], row["launches"],
+                 row["launches"] / 32, row["busy_share"],
+                 json.dumps(row["top"]), card))
+    # two sentences on the card and on the CPU
+    kw = dict(max_decoder_steps=200, first_chunk=16, emit_linear=True)
+    got = list(streaming.tts_stream(params, cfg, ap, en, SENTENCES[:2],
+                                    **kw))
+    t = time.time()
+    ap_cpu = pkg["AudioProcessor"](hp)
+    ref = list(streaming.tts_stream(copy.deepcopy(params).to("cpu"), cfg,
+                                    ap_cpu, en, SENTENCES[:2], **kw))
+    cmp = {"cpu_s": time.time() - t,
+           "steps": [got[-1]["decoded_steps"].tolist(),
+                     ref[-1]["decoded_steps"].tolist()],
+           "chunks_equal": [c["audio"].shape for c in got]
+           == [c["audio"].shape for c in ref]}
+    if cmp["chunks_equal"]:
+        lin = np.concatenate([c["linear"] for c in ref], axis=1)
+        cmp["linear_max_diff"] = max(float(np.abs(g["linear"] - r["linear"])
+                                           .max()) for g, r in zip(got, ref))
+        audio = [np.concatenate([c["audio"] for c in run], axis=1)
+                 for run in (got, ref)]
+        cmp["sc_ratio"] = [sc_ratio(torch, ap_cpu, a, b, lin[i])
+                           for i, (a, b) in enumerate(zip(*audio))]
+    cmp["cpu_routes"] = dict(ap_cpu.routes)
+    rows["cpu"] = cmp
+    ok &= (cmp["chunks_equal"] and cmp["steps"][0] == cmp["steps"][1]
+           and max(cmp["sc_ratio"]) <= 1.05
+           and set(cmp["cpu_routes"]) == {"general"})
+    phase("stream_general_hop", "2 sentences streamed on the card and on "
+          "the CPU: %s (bars: decoded steps and chunk sizes exact, spectral "
+          "convergence of the card's audio 1.05x the CPU's; linear frames a "
+          "figure); window routes on the card %s, kernel launches in the "
+          "timed streams %s, TF32 %s (bars: every window general, B2 not "
+          "launched, B1 launched, TF32 off) (%s)" % (
+              json.dumps(cmp), json.dumps(rows["routes"]),
+              json.dumps(launches["streams"]), rows["tf32"], card))
+    # the batcher
+    rows["cb"], launches["cb"] = cb_main_path(
+        torch, pkg, hp, dev, seed, card, "stream_general_hop", n_reqs=(8,))
+    # a stream at k = 8 on B2's window route
+    hp8 = ljspeech_hparams(hparams, repo)
+    hp8.parse(",".join(s for s in (extra_hp, "hop_size=128") if s))
+    cfg8, params8 = pkg["model_builder"].build_model(hp8, en.n_vocab,
+                                                     seed=seed, device=dev)
+    ap8 = pkg["AudioProcessor"](hp8)
+    run_stream(torch, streaming, params8, cfg8, ap8, en, SENTENCES[:1])
+    for _, k in kernels:
+        k.reset_counts()
+    ap8.routes.clear()
+    rows["k8_B1"] = stream_rows(torch, streaming, params8, cfg8, ap8, en, 1)
+    launches["k8_stream"] = kernel_counts(kernels)
+    rows["k8_routes"] = dict(ap8.routes)
+    rows["k8_b2_routes"] = dict(gl_cuda.KERNEL.by_route)
+    ok &= (set(rows["k8_routes"]) == {"b2"}
+           and launches["k8_stream"]["griffin_lim"].get("pinned", 0) > 0
+           and set(rows["k8_b2_routes"]) == {"window"})
+    phase("stream_general_hop", "fft 1024 / hop 128 (k = 8), B=1: %s; "
+          "window routes %s, B2 by route %s, launches %s (bars: every window "
+          "on B2, its pinned mode on its window route) (%s)" % (
+              json.dumps(rows["k8_B1"]), json.dumps(rows["k8_routes"]),
+              json.dumps(rows["k8_b2_routes"]),
+              json.dumps(launches["k8_stream"]), card))
+    return ok, rows, launches
 
 
 def write_ljspeech_corpus(root, n, sample_rate):
@@ -2288,29 +2594,68 @@ def cli_preprocess_phase(torch, pkg, repo, card, dev, device="cuda",
 
 
 def dsp_phases(torch, pkg, repo, dev, seed, card, device="cuda", extra_hp="",
-               b2_shape=(32, 400), n_utts=512, train_steps=20):
-    """Phases B2_center, dsp_modes and cli_preprocess (extra_hp, b2_shape,
-    n_utts and train_steps cut them down for a rehearsal on the CPU).
-    Returns (ok, rows, launches: {phase: {kernel: by entry}}); the
-    dsp_modes runs' counts are the main path's (reset before each, read
-    after)."""
+               b2_shape=(32, 400), n_utts=512, train_steps=20, shapes=True):
+    """Phases B2_center, B2_shapes, dsp_modes, stream_general_hop and
+    cli_preprocess (extra_hp, b2_shape, n_utts and train_steps cut them
+    down for a rehearsal on the CPU, where shapes=False leaves B2_shapes
+    out). Returns (ok, rows, launches: {phase: {kernel: by entry}}); the
+    dsp_modes and stream_general_hop runs' counts are the main path's
+    (reset before each, read after)."""
     hparams = pkg["hparams"]
     rows, launches, ok = {}, {}, True
     row = check_b2_center(torch, dev, seed, *b2_shape)
     rows["b2_center"] = row
     phase("B2_center", b2_center_line(row, card))
     ok &= b2_ok(row)
+    if shapes:
+        shapes_ok, rows["b2_shapes"] = b2_shapes_phase(torch, dev, seed, card)
+        ok &= shapes_ok
     for label, override, route in DSP_MODES:
         hp = ljspeech_hparams(hparams, repo)
         hp.parse(",".join(s for s in (extra_hp, override) if s))
         mode_ok, rows["dsp_" + label], launches["dsp_" + label] = \
             dsp_mode_run(torch, pkg, hp, dev, seed, card, label, route)
         ok &= mode_ok
+    sgh_ok, rows["stream_general_hop"], launches["stream_general_hop"] = \
+        stream_general_hop_phase(torch, pkg, repo, dev, seed, card, extra_hp)
+    ok &= sgh_ok
     rows["cli_preprocess"], cli_l = cli_preprocess_phase(
         torch, pkg, repo, card, dev, device=device, n_utts=n_utts,
         train_steps=train_steps, extra_hp=extra_hp)
     launches.update(cli_l)
     return ok, rows, launches
+
+
+
+def dsp_totals(dsp_l):
+    """The DSP phases' main-path launches as the kernels line counts them:
+    B1 outside and inside its serving mode (dsp_modes' tts_batch runs, the
+    general-hop streams, their batcher, the k = 8 stream), B2's centred
+    and batch modes (dsp_modes) and its stream modes (the k = 8 stream),
+    and B2's launches by framing ("fft/hop")."""
+    modes = {k: v for k, v in dsp_l.items() if k.startswith("dsp_")}
+    sgh = dsp_l["stream_general_hop"]
+    out = {"fused_decode": sum(sum(v["fused_decode"].values())
+                               for v in list(modes.values())
+                               + [sgh["streams"], sgh["k8_stream"]]),
+           "fused_decode_slots": sgh["cb"]["fused_decode_slots"],
+           "griffin_lim_center": sum(v["griffin_lim"].get("center", 0)
+                                     for v in modes.values()),
+           "griffin_lim": sum(v["griffin_lim"].get("batch", 0)
+                              for v in modes.values()),
+           "griffin_lim_stream": sum(sgh["k8_stream"]["griffin_lim"]
+                                     .values()),
+           "shapes": {}}
+    framing = {label: override for label, override, _ in DSP_MODES}
+    for label, v in modes.items():
+        hp = dict(kv.split("=") for kv in framing[label[4:]].split(","))
+        key = "%s/%s" % (hp.get("fft_size", FFT), hp.get("hop_size", HOP))
+        n = sum(v["griffin_lim"].values())
+        if n and key != "%d/%d" % (FFT, HOP):
+            out["shapes"][key] = out["shapes"].get(key, 0) + n
+    key = "%d/128" % FFT
+    out["shapes"][key] = out["shapes"].get(key, 0) + out["griffin_lim_stream"]
+    return out
 
 
 def tiny_model(pkg, seed=7, name="deepvoice3"):
@@ -2616,6 +2961,31 @@ def b1_setup_split(torch, pkg, params, cfg, ap, text, reps=5):
     return out
 
 
+def stream_rows(torch, streaming, params, cfg, ap, en, B):
+    """bench.py's stream measurement at B (the first B sentences): after a
+    warm-up, five streams; of the one with the least time to first audio,
+    ttfa_ms, its whole wall time and RTF, its first chunk's audio, its
+    chunks and decoded steps."""
+    args = (torch, streaming, params, cfg, ap, en, SENTENCES[:B])
+    run_stream(*args)                                   # warm-up
+    runs = [run_stream(*args) for _ in range(5)]
+    chunks, t_first, wall = min(runs, key=lambda r: r[1])
+    dec = chunks[-1]["decoded_steps"]
+    audio = np.concatenate([c["audio"] for c in chunks], axis=1)
+    if not chunks[-1]["final"] or not np.isfinite(audio).all() or \
+            audio.shape[1] < streaming.decoded_samples(cfg, ap, dec.max()):
+        fail("stream B=%d: bad audio %s for decoded steps %s"
+             % (B, audio.shape, dec.tolist()))
+    audio_s = streaming.decoded_samples(cfg, ap, dec.sum()) / ap.sample_rate
+    return {"ttfa_ms": t_first * 1e3,
+            "ttfa_ms_all": [round(r[1] * 1e3, 3) for r in runs],
+            "stream_total_ms": wall * 1e3,
+            "first_chunk_audio_ms": chunks[0]["audio"].shape[1]
+            / ap.sample_rate * 1e3,
+            "audio_s": audio_s, "rtf": audio_s / wall,
+            "chunks": len(chunks), "decoded_steps": dec.tolist()}
+
+
 def stream_main_path(torch, pkg, params, cfg, ap):
     """The streaming main path at the LJSpeech preset, measured as bench.py
     measures it, at B = 1 and B = 8 (the first B sentences): after a
@@ -2631,28 +3001,7 @@ def stream_main_path(torch, pkg, params, cfg, ap):
     args = (torch, streaming, params, cfg, ap, en)
     for k in (fd.KERNEL, gl_cuda.KERNEL, conv_cuda.KERNEL):
         k.reset_counts()
-    rows = {}
-    for B in (1, 8):
-        run_stream(*args, SENTENCES[:B])               # warm-up
-        runs = [run_stream(*args, SENTENCES[:B]) for _ in range(5)]
-        chunks, t_first, wall = min(runs, key=lambda r: r[1])
-        dec = chunks[-1]["decoded_steps"]
-        audio = np.concatenate([c["audio"] for c in chunks], axis=1)
-        if not chunks[-1]["final"] or not np.isfinite(audio).all() or \
-                audio.shape[1] < streaming.decoded_samples(cfg, ap,
-                                                           dec.max()):
-            fail("stream B=%d: bad audio %s for decoded steps %s"
-                 % (B, audio.shape, dec.tolist()))
-        audio_s = streaming.decoded_samples(cfg, ap, dec.sum()) \
-            / ap.sample_rate
-        rows["B%d" % B] = {
-            "ttfa_ms": t_first * 1e3,
-            "ttfa_ms_all": [round(r[1] * 1e3, 3) for r in runs],
-            "stream_total_ms": wall * 1e3,
-            "first_chunk_audio_ms": chunks[0]["audio"].shape[1]
-            / ap.sample_rate * 1e3,
-            "audio_s": audio_s, "rtf": audio_s / wall,
-            "chunks": len(chunks), "decoded_steps": dec.tolist()}
+    rows = {"B%d" % B: stream_rows(*args, B) for B in (1, 8)}
     launches = {"fused_decode": fd.KERNEL.launches,
                 "griffin_lim_stream": sum(
                     gl_cuda.KERNEL.by_entry.get(m, 0)
@@ -3160,7 +3509,9 @@ def cb_main_path(torch, pkg, hp, dev, seed, card, label, speakers=None,
     request, then n_req requests 50 ms apart for each n_req (sentence i %
     32, speaker speakers[i % 8]). Checks each request's length against
     decoded_samples of its steps, and the mid-stream admissions of the
-    first run against a fresh tts_stream of their text. Returns (rows,
+    first run against a fresh tts_stream of their text. Where the framing
+    takes the general-hop route (`ap.window_route`), every emission group
+    takes it (counted in ap.routes) and B2 is not launched. Returns (rows,
     launches of B1's serving mode and of B2 in the timed runs)."""
     import dataclasses
     import threading
@@ -3191,9 +3542,11 @@ def cb_main_path(torch, pkg, hp, dev, seed, card, label, speakers=None,
             sp = [spk[i % 8] for i in range(n_req)]
             for k in (fd.KERNEL, gl_cuda.KERNEL, conv_cuda.KERNEL):
                 k.reset_counts()
+            ap.routes.clear()
             before = b.timing()
             res, wall = cb_requests(b, texts, sp, 0.05)
             after = b.timing()
+            routes = dict(ap.routes)
             steps = after["n_steps"] - before["n_steps"]
             launches = {"fused_decode_slots": fd.KERNEL.by_entry.get(
                             "slots", 0),
@@ -3202,16 +3555,24 @@ def cb_main_path(torch, pkg, hp, dev, seed, card, label, speakers=None,
                         "griffin_lim": gl_cuda.KERNEL.launches,
                         "griffin_lim_by_route": dict(
                             gl_cuda.KERNEL.by_route),
-                        "conv_taps": conv_cuda.KERNEL.launches}
+                        "conv_taps": conv_cuda.KERNEL.launches,
+                        "gl_window_routes": routes}
             for k in path_launches:
                 path_launches[k] += launches[k]
+            if ap.window_route == "b2":
+                gl_ok = (launches["griffin_lim"] > 0 and set(
+                    launches["griffin_lim_by_route"]) == {"window"})
+            else:
+                gl_ok = (launches["griffin_lim"] == 0
+                         and set(routes) == {"general"})
             if launches["fused_decode_slots"] != steps or \
-                    launches["fused_decode_other"] or \
-                    launches["griffin_lim"] <= 0 or launches["conv_taps"] \
-                    or set(launches["griffin_lim_by_route"]) != {"window"}:
+                    launches["fused_decode_other"] or not gl_ok or \
+                    launches["conv_taps"]:
                 fail("%s: launches %s over %d steps: one serving-mode B1 "
-                     "launch a step, B2 launched on its window route, "
-                     "nothing else" % (label, launches, steps))
+                     "launch a step, every window on the %s route (B2 "
+                     "launched on its window route where that is b2), "
+                     "nothing else" % (label, launches, steps,
+                                       ap.window_route))
             bad = [i for i, r in enumerate(res)
                    if r[2] != streaming.decoded_samples(cfg, ap, r[3])]
             if bad:
@@ -3870,6 +4231,84 @@ def cli_totals(launches):
     return out
 
 
+
+def amsgrad_run(torch, pkg, repo, card, dev, hp_str, common, work,
+                steps=5):
+    """Phase cli_amsgrad: cli.train with `amsgrad=true` at the LJSpeech
+    preset (B = 16 f32) for `steps` steps with a checkpoint at step 3 and
+    the last, then a run resumed from the step-3 file to the same step.
+    Bars: the resumed steps' losses equal the uninterrupted run's bit for
+    bit, and so do the last files' bytes; the step-3 file names optax's
+    ScaleByAmsgradState in its fingerprint and loads onto the card bit for
+    bit (parameters, mu, nu and nu_max); losses finite. Returns (ok, row,
+    launches)."""
+    from deepvoice3_pytorch_tpu_torch.training import checkpoint as ckpt
+    from deepvoice3_pytorch_tpu_torch.training import trainer
+
+    ams_hp = hp_str + ",amsgrad=true,checkpoint_interval=3," \
+        "eval_interval=100000"
+    runs = {}
+    for name, extra in (("ams", []), ("ams_resume", [
+            "--checkpoint", ckpt.checkpoint_path(os.path.join(work, "ams"),
+                                                 3)])):
+        t = time.time()
+        run_cli(repo, "train", common + extra + [
+            "--hparams", ams_hp, "--checkpoint-dir",
+            os.path.join(work, name), "--max-steps", steps,
+            "--summary-json", os.path.join(work, name + ".json")])
+        with open(os.path.join(work, name + ".json")) as f:
+            runs[name] = json.load(f)
+        runs[name]["command_s"] = time.time() - t
+    a, b = runs["ams"], runs["ams_resume"]
+    files = [open(ckpt.checkpoint_path(os.path.join(work, d), steps),
+                  "rb").read() for d in ("ams", "ams_resume")]
+    # the step-3 file on the card
+    hp = preset_hparams(pkg["hparams"], repo, "deepvoice3_ljspeech")
+    hp.parse(ams_hp)
+    cfg, params = pkg["model_builder"].build_model(hp, pkg["en"].n_vocab,
+                                                   device=dev)
+    opt = trainer.make_optimizer(hp, trainer.make_lr_fn(hp))
+    template = trainer.init_train_state(params, opt).opt_state
+    mid = ckpt.checkpoint_path(os.path.join(work, "ams"), 3)
+    _, opt_state, gstep, _ = ckpt.load_checkpoint(mid, params, template)
+    blob = ckpt._load_blob(mid)
+    names = [k for k, _ in ckpt.jax_order(ckpt.param_tree(params))]
+    n = len(names)
+    saved = {"params": {k: v for k, (_, v) in zip(
+        names, ckpt.jax_order(blob["params"]))}}
+    for i, kind in enumerate(("mu", "nu", "nu_max")):
+        saved[kind] = dict(zip(names, blob["opt_state"][1 + i * n:
+                                                       1 + (i + 1) * n]))
+    sd = params.state_dict()
+    unequal = [k for k in names if not (
+        np.array_equal(sd[k].cpu().numpy(), saved["params"][k])
+        and all(np.array_equal(getattr(opt_state, kind)[k].cpu().numpy(),
+                               saved[kind][k])
+                for kind in ("mu", "nu", "nu_max")))]
+    row = {"losses": a["losses"], "resumed_losses": b["losses"],
+           "resumed_first_step": b["first_step"],
+           "losses_equal": b["losses"] == a["losses"][3:],
+           "files_equal": files[0] == files[1],
+           "file_bytes": len(files[0]),
+           "opt_leaves": len(blob["opt_state"]),
+           "fingerprint_is_amsgrad": blob["opt_fingerprint"]
+           == ckpt.opt_state_fingerprint(template, params)
+           and template.nu_max is not None,
+           "loaded_step": gstep, "tensors_unequal": len(unequal),
+           "steady_steps_per_s": a.get("steady_steps_per_s"),
+           "command_s": [round(r["command_s"], 1) for r in (a, b)]}
+    ok = (row["losses_equal"] and row["files_equal"]
+          and row["fingerprint_is_amsgrad"] and not unequal and gstep == 3
+          and row["opt_leaves"] == 3 * n + 2
+          and len(a["losses"]) == steps and all(np.isfinite(a["losses"])))
+    phase("cli_amsgrad", "%s (bars: the steps resumed from the step-3 file "
+          "give the uninterrupted run's losses and last file bit for bit; "
+          "the file holds [count, mu, nu, nu_max, count] (%d leaves) under "
+          "ScaleByAmsgradState's fingerprint and loads onto the card bit "
+          "for bit) (%s)" % (json.dumps(row), 3 * n + 2, card))
+    return ok, row, cli_launches(a)
+
+
 def cli_phases(torch, pkg, repo, card, dev, device="cuda", extra_hp="",
                train_steps=40, builder_steps=5):
     """Phases cli_corpus, cli_train, cli_resume, cli_synthesis, cli_serve
@@ -4002,6 +4441,13 @@ def cli_phases(torch, pkg, repo, card, dev, device="cuda", extra_hp="",
             ok = False
             phase("cli_resume", "FAILED: the resumed step's loss is %.3g "
                   "relative from the uninterrupted run's" % rel)
+
+        # -- amsgrad ---------------------------------------------------------
+        ams_ok, rows["cli_amsgrad"], launches["cli_amsgrad"] = amsgrad_run(
+            torch, pkg, repo, card, dev, hp_str, common, work)
+        if not ams_ok:
+            ok = False
+            phase("cli_amsgrad", "FAILED: see the bars above")
 
         # -- synthesis -------------------------------------------------------
         text_file = os.path.join(work, "sentences.txt")
@@ -4195,11 +4641,11 @@ def main():
                          "its windows and anchored start, P)")
     ap.add_argument("--cli-only", action="store_true",
                     help="only build the kernels and run the command "
-                         "lines' phases (cli_*)")
+                         "lines' phases (cli_*, cli_amsgrad among them)")
     ap.add_argument("--dsp-only", action="store_true",
                     help="only build the kernels and run the DSP and "
-                         "preprocessing phases (B2_center, dsp_modes, "
-                         "cli_preprocess)")
+                         "preprocessing phases (B2_center, B2_shapes, "
+                         "dsp_modes, stream_general_hop, cli_preprocess)")
     args = ap.parse_args()
     t_smoke = time.time()
     json_out = args.json_out
@@ -4298,7 +4744,8 @@ def main():
             dsp_ok, dsp_rows, dsp_l = dsp_phases(torch, pkg, repo, dev, seed,
                                                  card)
             phase("dsp", "kernel launches on the DSP and preprocessing "
-                  "paths: %s" % json.dumps(dsp_l))
+                  "paths: %s; summed: %s" % (json.dumps(dsp_l),
+                                             json.dumps(dsp_totals(dsp_l))))
             if json_out:
                 os.makedirs(os.path.dirname(os.path.abspath(json_out)),
                             exist_ok=True)
@@ -4575,15 +5022,16 @@ def main():
                                         if k.startswith("cli_")}))
         phase("cli", "kernel launches on the command lines' paths (with "
               "cli_preprocess's): %s" % json.dumps(cli))
-        modes = {k: v for k, v in dsp_l.items() if k.startswith("dsp_")}
-        b2_center_launches = sum(v["griffin_lim"].get("center", 0)
-                                 for v in modes.values())
-        b1_dsp = sum(sum(v["fused_decode"].values()) for v in modes.values())
-        phase("dsp", "kernel launches on the three DSP configurations' "
-              "tts_batch paths: %s" % json.dumps(modes))
+        dsp = dsp_totals(dsp_l)
+        phase("dsp", "kernel launches on the DSP configurations' tts_batch "
+              "paths, the general-hop streams and batcher and the k = 8 "
+              "stream: %s; summed: %s" % (json.dumps(
+                  {k: v for k, v in dsp_l.items() if not k.startswith(
+                      "cli_")}), json.dumps(dsp)))
         if not cli_ok:
             fail("a command line's phase missed its bar")
-        if not dsp_ok or b2_center_launches <= 0:
+        if not dsp_ok or dsp["griffin_lim_center"] <= 0 or \
+                len(dsp["shapes"]) != len(B2_FRAMINGS):
             fail("a DSP or preprocessing phase missed its bar")
         if json_out:
             os.makedirs(os.path.dirname(os.path.abspath(json_out)),
@@ -4604,6 +5052,23 @@ def main():
 
     b1_bound = b1_rows["B1"]["bound"]
     b2c = dsp_rows["b2_center"]
+    shapes = {}
+    for fft, hop in B2_FRAMINGS:   # B2 at the framings of B2_shapes
+        key = "%d/%d" % (fft, hop)
+        b, st = (dsp_rows["b2_shapes"]["%s %s" % (key, c)]
+                 for c in ("batch", "stream"))
+        shapes[key] = {"launches": dsp["shapes"].get(key, 0),
+                       "max_abs_err": max(b["err"], st["err"]),
+                       "ms": b["cuda_ms"], "plain_ms": b["plain_ms"],
+                       "bound_ms": b["bound"][0], "route": b["plan"]["route"],
+                       "stream_ms": st["cuda_ms"],
+                       "stream_plain_ms": st["plain_ms"],
+                       "stream_bound_ms": st["bound"][0]}
+    shapes["%d/%d" % (FFT, HOP)] = {
+        "launches": launches["griffin_lim"] + cli["griffin_lim"]
+        + dsp["griffin_lim_center"] + st_launches["griffin_lim_stream"]
+        + sum(v["griffin_lim"] for v in cb_launches.values())
+        + cli["griffin_lim_stream"]}
     phase("total", "the smoke took %.1f s" % (time.time() - t_smoke))
 
     print(json.dumps({"kernels": [
@@ -4611,7 +5076,8 @@ def main():
          "source": "deepvoice3_pytorch_tpu_torch/csrc/fused_decode.cu",
          "replaces": "deepvoice3_pytorch_tpu/ops/fused_decode.py:198",
          "launches": sum(b1_paths.values()) + sum(b1_slots.values())
-         + cli["fused_decode"] + cli["fused_decode_slots"] + b1_dsp,
+         + cli["fused_decode"] + cli["fused_decode_slots"]
+         + dsp["fused_decode"] + dsp["fused_decode_slots"],
          "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain_ms,
          "bound_ms": b1_bound[0], "bound_by": b1_bound[1],
          "library_ms": None, "timing": "host-paced",
@@ -4619,7 +5085,8 @@ def main():
         {"name": "fused_decode_slots", "route": "cuda",
          "source": "deepvoice3_pytorch_tpu_torch/csrc/fused_decode.cu",
          "replaces": "deepvoice3_pytorch_tpu/ops/fused_decode.py:198",
-         "launches": sum(b1_slots.values()) + cli["fused_decode_slots"],
+         "launches": sum(b1_slots.values()) + cli["fused_decode_slots"]
+         + dsp["fused_decode_slots"],
          "max_abs_err": b1s["err"],
          "ms": b1s["ms"], "plain_ms": b1s["plain_ms"],
          "bound_ms": b1s["bound"][0], "bound_by": b1s["bound"][1],
@@ -4628,16 +5095,17 @@ def main():
         {"name": "griffin_lim", "route": "cuda",
          "source": "deepvoice3_pytorch_tpu_torch/csrc/griffin_lim.cu",
          "replaces": "deepvoice3_pytorch_tpu/dsp/gl_pallas.py:146",
-         "launches": launches["griffin_lim"] + cli["griffin_lim"],
+         "launches": launches["griffin_lim"] + cli["griffin_lim"]
+         + dsp["griffin_lim"],
          "max_abs_err": b2["err"],
          "ms": b2["cuda_ms"], "plain_ms": b2["plain_ms"],
          "bound_ms": b2["bound"][0], "bound_by": b2["bound"][1],
          "library_ms": None, "timing": "host-paced",
-         "gemm_library_ms": b2["gemm_library_ms"]},
+         "gemm_library_ms": b2["gemm_library_ms"], "shapes": shapes},
         {"name": "griffin_lim_center", "route": "cuda",
          "source": "deepvoice3_pytorch_tpu_torch/csrc/griffin_lim.cu",
          "replaces": "deepvoice3_pytorch_tpu/dsp/gl_pallas.py:146",
-         "launches": b2_center_launches, "max_abs_err": b2c["err"],
+         "launches": dsp["griffin_lim_center"], "max_abs_err": b2c["err"],
          "ms": b2c["cuda_ms"], "plain_ms": b2c["plain_ms"],
          "bound_ms": b2c["bound"][0], "bound_by": b2c["bound"][1],
          "library_ms": None, "timing": "host-paced"},
@@ -4646,7 +5114,7 @@ def main():
          "replaces": "deepvoice3_pytorch_tpu/dsp/gl_pallas.py:146",
          "launches": st_launches["griffin_lim_stream"] + sum(
              v["griffin_lim"] for v in cb_launches.values())
-         + cli["griffin_lim_stream"],
+         + cli["griffin_lim_stream"] + dsp["griffin_lim_stream"],
          "max_abs_err": b2s["err"], "ms": b2s["cuda_ms"],
          "plain_ms": b2s["plain_ms"], "bound_ms": b2s["bound"][0],
          "bound_by": b2s["bound"][1], "library_ms": None,

@@ -37,12 +37,14 @@
 // interleaved per bin, rows Kp apart, so that each thread of the analysis
 // epilogue holds the (re, im) pair of a bin in adjacent accumulators. An
 // iteration is three steps:
-//   1. synthesis GEMM: frames (M, fft) f32 = carry (M, 2F) x synT^T, synT
+//   1. synthesis GEMM: frames (M, fs) f32 = carry (M, 2F) x synT^T, synT
 //      (fft, 2F) the inverse DFT transposed (K-major);
-//   2. overlap-add: one thread per 4 output samples sums the k = fft/hop
-//      overlapping chunks in a fixed order, times the inverse normaliser,
-//      and writes the bf16 re-framed signal a16
-//      (M, fft): a16[b*n + f, c*hop + j] = bf16(y_b[f + c, j]) (times the
+//   2. overlap-add: one thread per 4 output samples (per sample when hop %
+//      4 != 0) sums the k = fft/hop overlapping chunks in chunk order, four
+//      chunk loads in flight at a time (any k; k <= 4 with hop % 4 == 0,
+//      the usual fft / 4 hop, in kernels of their own), times the inverse
+//      normaliser, and writes the bf16 re-framed signal a16
+//      (M, fs): a16[b*n + f, c*hop + j] = bf16(y_b[f + c, j]) (times the
 //      window in f32 first when unfolded), so that the analysis is a plain
 //      GEMM for any hop;
 //   3. analysis GEMM: a16 x anaT^T, anaT (2F, fft) the forward DFT, with
@@ -51,6 +53,13 @@
 // A start step precedes the first iteration, and a last synthesis and
 // overlap-add into the f32 waveform (with the returned spectrum) follows the
 // last. No sum uses atomics: two runs of a call are bit-equal.
+//
+// Shapes. Any hop that divides fft (the Pallas kernel's own rule). frames
+// and a16 rows are fs = fft rounded up to 64 apart (16-byte TMA rows for any
+// fft); the synthesis tiles past fft read zero-filled rows of synT and
+// write zeros that nothing reads, and the analysis reads a16 and anaT
+// (rows fft rounded up to 8 apart) with their true K extent, fft, so TMA's
+// zero fill covers the K tail of both.
 //
 // What bounds it. At LJSpeech shapes (B = 32, n = 400, F = 513, fft = 1024)
 // each iteration is two GEMMs of about 28 GFLOP each: the bf16 tensor cores
@@ -97,15 +106,16 @@ struct GriffinLimArgs {
   const float* S;              // (B, n, F) magnitudes
   const float* inorm;          // (n + k - 1, hop) inverse OLA normaliser
   const bf16* synT;            // (fft, Kp): row t, col 2f|2f+1 = inv re|im
-  const bf16* anaT;            // (2F, fft): row 2f|2f+1 = fwd re|im
+  const bf16* anaT;            // (2F, fft8): row 2f|2f+1 = fwd re|im,
+                               //   fft8 = fft rounded up to 8
   const float* win;            // (fft) window, applied here when fold == 0
   const float* init_re;        // given: (B, n, F); anchored: (B, n_pinned, F)
   const float* init_im;        //   context, items init_stride apart
   bf16* c;                     // (M, Kp) spectrum carry
   bf16* tp;                    // (M, 2F) previous projection carry
   bf16* pin;                   // (B, n_pinned, 2F) pinned start values
-  float* frames;               // (M, fft) synthesised frames
-  bf16* a16;                   // (M, fft) re-framed signal for the analysis
+  float* frames;               // (M, fs) synthesised frames
+  bf16* a16;                   // (M, fs) re-framed signal for the analysis
   float* out;                  // (B, n + k - 1, hop) waveform
   float* spec_re;              // (B, n, F) final carry, or null
   float* spec_im;
@@ -113,7 +123,7 @@ struct GriffinLimArgs {
   unsigned long long* trace;   // window route: (steps + 1, 1024, 2) stamps,
                                //   or null (see gl_window)
   long long init_stride;       // elements between items of init_re / init_im
-  int B, n, F, fft, hop, Kp, n_iters, init, n_pinned, fold;
+  int B, n, F, fft, hop, Kp, fs, n_iters, init, n_pinned, fold;
   int route, bm, bn, one_launch;
   float momentum, omega_scale; // omega_scale = 2 pi hop / fft
 };
@@ -253,32 +263,34 @@ __device__ __forceinline__ void init_elem(const GriffinLimArgs& a,
   }
 }
 
-// Overlap-add of output samples 4 q .. 4 q + 3 of (B, n + k - 1, hop)
-// (hop % 4 == 0, k = fft / hop <= KMAX): ola_load issues the k chunk loads,
-// ola_store sums them in chunk order, times the inverse normaliser, into
-// the waveform (final) or into the bf16 re-framed copies of a16.
+// Overlap-add, the k <= 4 path (hop % 4 == 0, k = fft / hop <= KMAX, the
+// shapes of fft / 4 hops): one thread per 4 output samples q .. of (B, n + k
+// - 1, hop); ola_load issues the k chunk loads, ola_store sums them in chunk
+// order, times the inverse normaliser, into the waveform (final) or into
+// the bf16 re-framed copies of a16. Its register arrays are sized for k <=
+// 4; ola_units below takes every other framing.
 constexpr int KMAX = 4;
 struct OlaPos {
   int j, r, b;
 };
 
-__device__ __forceinline__ OlaPos ola_pos(const GriffinLimArgs& a,
-                                          unsigned q) {
+__device__ __forceinline__ OlaPos ola_pos4(const GriffinLimArgs& a,
+                                           unsigned q) {
   const int nb = a.n + a.fft / a.hop - 1, hq = a.hop / 4;
   const unsigned row = q / hq, rb = row / nb;
   return {4 * (int)(q - row * hq), (int)(row - rb * nb), (int)rb};
 }
 
-__device__ __forceinline__ void ola_load(const GriffinLimArgs& a, OlaPos o,
-                                         float4 (&v)[KMAX]) {
+__device__ __forceinline__ void ola_load4(const GriffinLimArgs& a, OlaPos o,
+                                          float4 (&v)[KMAX]) {
   const int k = a.fft / a.hop;
   // frame r - c, chunk c
-  const float* src = a.frames + ((size_t)o.b * a.n + o.r) * a.fft + o.j;
+  const float* src = a.frames + ((size_t)o.b * a.n + o.r) * a.fs + o.j;
 #pragma unroll
   for (int c = 0; c < KMAX; ++c)
     if (c < k && o.r - c >= 0 && o.r - c < a.n)
       v[c] = __ldcg(reinterpret_cast<const float4*>(
-          src - (size_t)c * a.fft + c * a.hop));
+          src - (size_t)c * a.fs + c * a.hop));
 }
 
 __device__ __forceinline__ float4 mul4(float4 x, float4 w) {
@@ -286,9 +298,10 @@ __device__ __forceinline__ float4 mul4(float4 x, float4 w) {
                      __fmul_rn(x.z, w.z), __fmul_rn(x.w, w.w));
 }
 
-__device__ __forceinline__ void ola_store(const GriffinLimArgs& a, unsigned q,
-                                          OlaPos o, const float4 (&v)[KMAX],
-                                          bool final) {
+__device__ __forceinline__ void ola_store4(const GriffinLimArgs& a,
+                                           unsigned q, OlaPos o,
+                                           const float4 (&v)[KMAX],
+                                           bool final) {
   const int k = a.fft / a.hop;
   float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
@@ -315,7 +328,7 @@ __device__ __forceinline__ void ola_store(const GriffinLimArgs& a, unsigned q,
     const float4 z = a.fold ? y : mul4(y, *reinterpret_cast<const float4*>(
                                               a.win + c * a.hop + o.j));
     *reinterpret_cast<uint2*>(
-        a.a16 + ((size_t)o.b * a.n + f) * a.fft + c * a.hop + o.j) =
+        a.a16 + ((size_t)o.b * a.n + f) * a.fs + c * a.hop + o.j) =
         make_uint2(pack_bf16(z.x, z.y), pack_bf16(z.z, z.w));
   }
 }
@@ -323,8 +336,9 @@ __device__ __forceinline__ void ola_store(const GriffinLimArgs& a, unsigned q,
 // quads first, first + stride, ... below quads, Q at a time: all their
 // loads issued before any sum, so a thread waits on memory once per Q
 template <int Q>
-__device__ void ola_quads(const GriffinLimArgs& a, unsigned first,
-                          unsigned stride, unsigned quads, bool final) {
+__device__ __forceinline__ void ola_quads4(const GriffinLimArgs& a,
+                                           unsigned first, unsigned stride,
+                                           unsigned quads, bool final) {
   for (unsigned q0 = first; q0 < quads; q0 += Q * stride) {
     float4 v[Q][KMAX];
     OlaPos o[Q];
@@ -332,15 +346,181 @@ __device__ void ola_quads(const GriffinLimArgs& a, unsigned first,
     for (int u = 0; u < Q; ++u) {
       const unsigned q = q0 + u * stride;
       if (q >= quads) continue;
-      o[u] = ola_pos(a, q);
-      ola_load(a, o[u], v[u]);
+      o[u] = ola_pos4(a, q);
+      ola_load4(a, o[u], v[u]);
     }
 #pragma unroll
     for (int u = 0; u < Q; ++u) {
       const unsigned q = q0 + u * stride;
-      if (q < quads) ola_store(a, q, o[u], v[u], final);
+      if (q < quads) ola_store4(a, q, o[u], v[u], final);
     }
   }
+}
+
+// Overlap-add, every other framing: output samples V q .. V q + V - 1 of
+// (B, n + k - 1, hop), k = fft / hop any size: V = 4 (float4 loads and
+// stores, 16-byte aligned) when hop % 4 == 0, else V = 1. The k
+// overlapping chunks are loaded KG at a time, all of a group's loads issued
+// before any sum, and summed in chunk order (the plain version's order);
+// the sum times the inverse normaliser goes into the waveform (final) or
+// into the bf16 re-framed copies of a16.
+constexpr int KG = 4;
+
+template <int V>
+__device__ __forceinline__ OlaPos ola_pos(const GriffinLimArgs& a,
+                                          unsigned q) {
+  const int nb = a.n + a.fft / a.hop - 1, hq = a.hop / V;
+  const unsigned row = q / hq, rb = row / nb;
+  return {V * (int)(q - row * hq), (int)(row - rb * nb), (int)rb};
+}
+
+// V floats at p: written earlier in this launch (L2) or constant
+template <int V>
+__device__ __forceinline__ void ld_cg(const float* p, float (&x)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
+    x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+  } else {
+    x[0] = __ldcg(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void ld_const(const float* p, float (&x)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+  } else {
+    x[0] = *p;
+  }
+}
+
+// y = x times the f32 window (inorm or win) at p, each product rounded once
+template <int V>
+__device__ __forceinline__ void mul_const(const float (&x)[V], const float* p,
+                                          float (&y)[V]) {
+  float w[V];
+  ld_const<V>(p, w);
+#pragma unroll
+  for (int i = 0; i < V; ++i) y[i] = __fmul_rn(x[i], w[i]);
+}
+
+template <int V>
+__device__ __forceinline__ void ola_store(const GriffinLimArgs& a, unsigned q,
+                                          OlaPos o, const float (&acc)[V],
+                                          bool final) {
+  float y[V];
+  mul_const<V>(acc, a.inorm + o.r * a.hop + o.j, y);
+  if (final) {
+    float* dst = a.out + (size_t)V * q;
+    if constexpr (V == 4)
+      *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
+    else
+      *dst = y[0];
+    return;
+  }
+  const int k = a.fft / a.hop;
+  const int c_lo = max(0, o.r - a.n + 1), c_hi = min(k - 1, o.r);
+  for (int c = c_lo; c <= c_hi; ++c) {
+    const int f = o.r - c;
+    // unfolded: analysis window in f32, then the bf16 cast
+    float z[V];
+    if (a.fold) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) z[i] = y[i];
+    } else {
+      mul_const<V>(y, a.win + c * a.hop + o.j, z);
+    }
+    bf16* dst = a.a16 + ((size_t)o.b * a.n + f) * a.fs + c * a.hop + o.j;
+    if constexpr (V == 4)
+      *reinterpret_cast<uint2*>(dst) =
+          make_uint2(pack_bf16(z[0], z[1]), pack_bf16(z[2], z[3]));
+    else
+      *dst = __float2bfloat16_rn(z[0]);
+  }
+}
+
+// units first, first + stride, ... below units, Q at a time: each group of
+// KG chunks of all Q units loaded before any of them is summed, so a thread
+// waits on memory once per group
+template <int Q, int V>
+__device__ __forceinline__ void ola_units(const GriffinLimArgs& a,
+                                          unsigned first, unsigned stride,
+                                          unsigned units, bool final) {
+  const int k = a.fft / a.hop;
+  for (unsigned q0 = first; q0 < units; q0 += Q * stride) {
+    OlaPos o[Q];
+    float acc[Q][V];
+#pragma unroll
+    for (int u = 0; u < Q; ++u) {
+      const unsigned q = q0 + u * stride;
+      o[u] = q < units ? ola_pos<V>(a, q) : OlaPos{0, -k, 0};
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[u][i] = 0.0f;
+    }
+    for (int c0 = 0; c0 < k; c0 += KG) {
+      float v[Q][KG][V];
+#pragma unroll
+      for (int u = 0; u < Q; ++u) {
+        // frame r - c, chunk c
+        const float* src =
+            a.frames + ((size_t)o[u].b * a.n + o[u].r) * a.fs + o[u].j;
+#pragma unroll
+        for (int g = 0; g < KG; ++g) {
+          const int c = c0 + g, f = o[u].r - c;
+          if (c < k && f >= 0 && f < a.n)
+            ld_cg<V>(src - (size_t)c * a.fs + c * a.hop, v[u][g]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < Q; ++u) {
+#pragma unroll
+        for (int g = 0; g < KG; ++g) {
+          const int c = c0 + g, f = o[u].r - c;
+          if (c >= k || f < 0 || f >= a.n) continue;
+          // unfolded: synthesis window in f32, rounded before the sum
+          float x[V];
+          if (a.fold) {
+#pragma unroll
+            for (int i = 0; i < V; ++i) x[i] = v[u][g][i];
+          } else {
+            mul_const<V>(v[u][g], a.win + c * a.hop + o[u].j, x);
+          }
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc[u][i] = __fadd_rn(acc[u][i], x[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < Q; ++u) {
+      const unsigned q = q0 + u * stride;
+      if (q < units) ola_store<V>(a, q, o[u], acc[u], final);
+    }
+  }
+}
+
+// Which overlap-add a kernel compiles: ANY = false the k <= 4 path, true
+// the general one. They are separate instantiations of the kernels that
+// run them: compiled into one persistent window kernel, the general path's
+// registers spilled its k <= 4 path and GEMM tiles (an (8, 152) x 32
+// window measured 1.21-1.37 -> 1.48-1.76 ms on the H100, inlined or
+// called).
+__host__ __device__ constexpr bool ola_any(int fft, int hop) {
+  return hop % 4 != 0 || fft / hop > KMAX;
+}
+
+// the overlap-add step over the whole batch, threads first, first + stride
+template <bool ANY>
+__device__ __forceinline__ void ola_step(const GriffinLimArgs& a,
+                                         unsigned first, unsigned stride,
+                                         bool final) {
+  const unsigned samples = a.B * (a.n + a.fft / a.hop - 1) * a.hop;
+  if constexpr (!ANY)
+    ola_quads4<2>(a, first, stride, samples / 4, final);
+  else if (a.hop % 4 == 0)
+    ola_units<2, 4>(a, first, stride, samples / 4, final);
+  else
+    ola_units<4, 1>(a, first, stride, samples, final);
 }
 
 // the final carry of (row, bin), de-interleaved to f32
@@ -443,7 +623,7 @@ __device__ __forceinline__ void epilogue(const GriffinLimArgs& a,
       for (int h = 0; h < 2; ++h) {
         const int row = row0 + 8 * h;
         if (row < M)
-          *reinterpret_cast<float2*>(frames + (size_t)row * a.fft + col) =
+          *reinterpret_cast<float2*>(frames + (size_t)row * a.fs + col) =
               make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
       }
     }
@@ -513,14 +693,21 @@ __global__ void init_kernel(const GriffinLimArgs a) {
   init_elem(a, blockIdx.x * blockDim.x + threadIdx.x);
 }
 
+// one thread per output unit (4 samples, or 1 when hop % 4 != 0)
+template <bool ANY>
 __global__ void ola_kernel(const GriffinLimArgs a, int final) {
-  const int nb = a.n + a.fft / a.hop - 1;
   const unsigned q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= (unsigned)(a.B * nb * a.hop / 4)) return;
-  const OlaPos o = ola_pos(a, q);
-  float4 v[KMAX];
-  ola_load(a, o, v);
-  ola_store(a, q, o, v, final != 0);
+  const unsigned samples = a.B * (a.n + a.fft / a.hop - 1) * a.hop;
+  // stride = units: one unit a thread
+  if constexpr (!ANY) {
+    if (q < samples / 4)
+      ola_quads4<1>(a, q, samples / 4, samples / 4, final != 0);
+  } else if (a.hop % 4 == 0) {
+    if (q < samples / 4)
+      ola_units<1, 4>(a, q, samples / 4, samples / 4, final != 0);
+  } else if (q < samples) {
+    ola_units<1, 1>(a, q, samples, samples, final != 0);
+  }
 }
 
 __global__ void spec_kernel(const GriffinLimArgs a) {
@@ -572,7 +759,7 @@ struct WindowMaps {
 // share the element-wise steps. trace (blocks below TRACE_BLOCKS): the
 // globaltimer at the start and the end of each step p at [p][block], and
 // the block's SM at [steps][block][0].
-template <int BN, int NWG>
+template <int BN, int NWG, bool ANY>
 __global__ void __launch_bounds__(win_threads<NWG>(), win_blocks<BN>())
     gl_window(const __grid_constant__ WindowMaps maps, const GriffinLimArgs a,
               int p_begin, int p_end) {
@@ -585,12 +772,11 @@ __global__ void __launch_bounds__(win_threads<NWG>(), win_blocks<BN>())
   const int wg = warp >> 2;
   const int M = a.B * a.n, F2 = 2 * a.F;
   const int m_tiles = (M + BM - 1) / BM;
-  const int syn_n = a.fft / BN, ana_n = (F2 + BN - 1) / BN;
-  const int nk_syn = (F2 + GK - 1) / GK, nk_ana = a.fft / GK;
+  const int syn_n = (a.fft + BN - 1) / BN, ana_n = (F2 + BN - 1) / BN;
+  const int nk_syn = (F2 + GK - 1) / GK, nk_ana = (a.fft + GK - 1) / GK;
   const int last = 3 * a.n_iters + 2;
   const unsigned tid = blockIdx.x * blockDim.x + threadIdx.x;
   const unsigned nthreads = gridDim.x * blockDim.x;
-  const unsigned quads = a.B * (a.n + a.fft / a.hop - 1) * a.hop / 4;
   unsigned long long* trace =
       a.trace != nullptr && blockIdx.x < TRACE_BLOCKS && threadIdx.x == 0
           ? a.trace + 2 * (size_t)blockIdx.x : nullptr;
@@ -610,12 +796,12 @@ __global__ void __launch_bounds__(win_threads<NWG>(), win_blocks<BN>())
       const unsigned n_init = a.init == INIT_GIVEN ? M * a.F : a.B * a.F;
       for (unsigned i = tid; i < n_init; i += nthreads) init_elem(a, i);
     } else if (p == last) {
-      ola_quads<2>(a, tid, nthreads, quads, true);
+      ola_step<ANY>(a, tid, nthreads, true);
       if (a.spec_re != nullptr)
         for (unsigned i = tid; i < (unsigned)(M * a.F); i += nthreads)
           spec_elem(a, i);
     } else if ((p - 1) % 3 == 1) {
-      ola_quads<2>(a, tid, nthreads, quads, false);
+      ola_step<ANY>(a, tid, nthreads, false);
     } else {   // a GEMM: synthesis or analysis
       const bool syn = (p - 1) % 3 == 0;
       const int n_tiles = syn ? syn_n : ana_n, nk = syn ? nk_syn : nk_ana;
@@ -674,9 +860,10 @@ int run_batch(const GriffinLimArgs& a, const WindowMaps& maps,
   if (attr_syn != cudaSuccess) return (int)attr_syn;
   if (attr_ana != cudaSuccess) return (int)attr_ana;
   const long M = (long)a.B * a.n, nb = a.n + a.fft / a.hop - 1;
-  const dim3 syn_grid(cdiv(M, BATCH_BM), a.fft / BATCH_BN_SYN);
+  const dim3 syn_grid(cdiv(M, BATCH_BM), cdiv(a.fft, BATCH_BN_SYN));
   const dim3 ana_grid(cdiv(M, BATCH_BM), cdiv(2 * a.F, BATCH_BN_ANA));
-  const unsigned ola_blocks = cdiv((long)a.B * nb * a.hop / 4, 256);
+  const unsigned ola_blocks =
+      cdiv((long)a.B * nb * a.hop / (a.hop % 4 == 0 ? 4 : 1), 256);
   const unsigned init_blocks =
       cdiv(a.init == INIT_GIVEN ? M * a.F : (long)a.B * a.F, 256);
 
@@ -684,7 +871,10 @@ int run_batch(const GriffinLimArgs& a, const WindowMaps& maps,
   for (int it = 0; it <= a.n_iters; ++it) {   // the last: the waveform
     gemm_batch<BATCH_BN_SYN, SYNTH>
         <<<syn_grid, BATCH_THREADS, smem_syn, stream>>>(maps.c, maps.syn, a);
-    ola_kernel<<<ola_blocks, 256, 0, stream>>>(a, it == a.n_iters);
+    if (ola_any(a.fft, a.hop))
+      ola_kernel<true><<<ola_blocks, 256, 0, stream>>>(a, it == a.n_iters);
+    else
+      ola_kernel<false><<<ola_blocks, 256, 0, stream>>>(a, it == a.n_iters);
     if (it == a.n_iters) break;
     gemm_batch<BATCH_BN_ANA, ANALYSIS>
         <<<ana_grid, BATCH_THREADS, smem_ana, stream>>>(maps.a16, maps.ana,
@@ -695,17 +885,17 @@ int run_batch(const GriffinLimArgs& a, const WindowMaps& maps,
   return (int)cudaGetLastError();
 }
 
-template <int BN, int NWG>
+template <int BN, int NWG, bool ANY>
 int run_window(const GriffinLimArgs& a, const WindowMaps& maps,
                cudaStream_t stream, int device) {
   constexpr int BM = 64 * NWG, THREADS = win_threads<NWG>();
   constexpr size_t smem = ring_smem(win_stages<BN>(), BM, BN);
-  static cudaError_t attr = allow_smem(gl_window<BN, NWG>, smem);
+  static cudaError_t attr = allow_smem(gl_window<BN, NWG, ANY>, smem);
   if (attr != cudaSuccess) return (int)attr;
   static int per_sm = 0;
   if (per_sm == 0) {
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, gl_window<BN, NWG>, THREADS, smem);
+        &per_sm, gl_window<BN, NWG, ANY>, THREADS, smem);
     if (e != cudaSuccess) return (int)e;
   }
   int sms = 0;
@@ -713,20 +903,21 @@ int run_window(const GriffinLimArgs& a, const WindowMaps& maps,
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return (int)e;
   const long M = (long)a.B * a.n, m_tiles = cdiv(M, BM);
-  const long tiles = std::max(m_tiles * (a.fft / BN),
+  const long tiles = std::max(m_tiles * (long)cdiv(a.fft, BN),
                               m_tiles * (long)cdiv(2 * a.F, BN));
   const int grid = (int)std::max(1L, std::min((long)per_sm * sms, tiles));
   const int phases = 3 * a.n_iters + 3;
   if (a.one_launch) {
     int pb = 0, pe = phases;
     void* params[] = {(void*)&maps, (void*)&a, (void*)&pb, (void*)&pe};
-    e = cudaLaunchCooperativeKernel((const void*)gl_window<BN, NWG>,
+    e = cudaLaunchCooperativeKernel((const void*)gl_window<BN, NWG, ANY>,
                                     dim3(grid), dim3(THREADS), params, smem,
                                     stream);
     if (e != cudaSuccess) return (int)e;
   } else {
     for (int p = 0; p < phases; ++p)
-      gl_window<BN, NWG><<<grid, THREADS, smem, stream>>>(maps, a, p, p + 1);
+      gl_window<BN, NWG, ANY><<<grid, THREADS, smem, stream>>>(maps, a, p,
+                                                               p + 1);
   }
   return (int)cudaGetLastError();
 }
@@ -744,25 +935,38 @@ extern "C" int dv3_griffin_lim(const GriffinLimArgs* args, void* stream_ptr,
   const bool tiles_ok = (a.bm == 64 && (a.bn == 32 || a.bn == 64)) ||
                         (a.bm == 128 && a.bn == 128);
   if (!batch && !tiles_ok) return (int)cudaErrorInvalidValue;
+  // hop | fft; the synthesis tiles' columns stay inside the fs-wide rows
+  const int bn_syn = batch ? BATCH_BN_SYN : a.bn;
+  if (a.hop <= 0 || a.fft % a.hop != 0 || a.fs % 64 != 0 || a.fs < a.fft ||
+      a.fs % bn_syn != 0)
+    return (int)cudaErrorInvalidValue;
   const int bm = batch ? BATCH_BM : a.bm;
   const long M = (long)a.B * a.n, F2 = 2 * a.F;
+  const long ana_row = ((long)a.fft + 7) / 8 * 8;   // 16-byte rows
   WindowMaps maps;
   int rc = encode_bf16_rows(&maps.c, a.c, F2, M, 1, (long)a.Kp * 2, GK, bm);
   if (rc == 0)
     rc = encode_bf16_rows(&maps.syn, a.synT, F2, a.fft, 1, (long)a.Kp * 2, GK,
-                          batch ? BATCH_BN_SYN : a.bn);
+                          bn_syn);
   if (rc == 0)
-    rc = encode_bf16_rows(&maps.a16, a.a16, a.fft, M, 1, (long)a.fft * 2, GK,
+    rc = encode_bf16_rows(&maps.a16, a.a16, a.fft, M, 1, (long)a.fs * 2, GK,
                           bm);
   if (rc == 0)
-    rc = encode_bf16_rows(&maps.ana, a.anaT, a.fft, F2, 1, (long)a.fft * 2,
-                          GK, batch ? BATCH_BN_ANA : a.bn);
+    rc = encode_bf16_rows(&maps.ana, a.anaT, a.fft, F2, 1, ana_row * 2, GK,
+                          batch ? BATCH_BN_ANA : a.bn);
   if (rc != 0) return rc;
   if (batch) return run_batch(a, maps, stream);
+  if (ola_any(a.fft, a.hop)) {
+    switch (a.bn) {
+      case 32: return run_window<32, 1, true>(a, maps, stream, device);
+      case 64: return run_window<64, 1, true>(a, maps, stream, device);
+      default: return run_window<128, 2, true>(a, maps, stream, device);
+    }
+  }
   switch (a.bn) {
-    case 32: return run_window<32, 1>(a, maps, stream, device);
-    case 64: return run_window<64, 1>(a, maps, stream, device);
-    default: return run_window<128, 2>(a, maps, stream, device);
+    case 32: return run_window<32, 1, false>(a, maps, stream, device);
+    case 64: return run_window<64, 1, false>(a, maps, stream, device);
+    default: return run_window<128, 2, false>(a, maps, stream, device);
   }
 }
 

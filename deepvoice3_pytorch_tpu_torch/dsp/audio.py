@@ -15,11 +15,12 @@ Inversion: normalized linear spectrogram -> denormalize -> dB to amplitude
 phase retrieval is chosen from the configuration (`inversion_route`) and
 counted per call in `routes`:
   * "b2": Griffin-Lim on kernel B2 (dsp/gl_cuda.py: the CUDA kernel on the
-    card, its plain version on the CPU) when hop | fft, with the centred
+    card, its plain version on the CPU) whenever B2 takes the framing
+    (`gl_cuda.b2_takes`: hop | fft, at any fft / hop), with the centred
     trim in centre mode;
   * "general": the JAX package's XLA Griffin-Lim loop in plain PyTorch
-    (dsp/stft.py `griffin_lim`) when hop does not divide fft, where the JAX
-    package takes that loop too;
+    (dsp/stft.py `griffin_lim`, bf16 carry) when hop does not divide fft,
+    where the JAX package takes that loop too;
   * "lws": local-weighted-sums retrieval (dsp/lws_phase.py) for
     phase_retrieval="lws", which needs hop | fft (ValueError at
     construction otherwise, as in the JAX package).
@@ -96,17 +97,32 @@ class AudioProcessor:
 
     @property
     def inversion_route(self):
-        """"lws", "b2" (hop | fft) or "general" (any other hop)."""
+        """"lws", else `window_route`."""
         if self.phase_retrieval == "lws":
             return "lws"
-        return "general" if self.fft_size % self.hop_size else "b2"
+        return self.window_route
 
-    def mats(self, device):
-        """Window-folded bf16 DFT matrices on `device`, built once."""
-        key = str(torch.device(device))
+    @property
+    def window_route(self):
+        """Griffin-Lim's route for this framing, a rule of the shape: "b2"
+        where kernel B2 takes it (`gl_cuda.b2_takes`: hop | fft), else
+        "general" (dsp/stft.py `griffin_lim`), as the JAX package's guard
+        (`gl_pallas.fits_vmem`) decides. Streams and serving windows take
+        it whatever phase_retrieval says, as in the JAX package."""
+        return "b2" if gl_cuda.b2_takes(self.fft_size, self.hop_size) \
+            else "general"
+
+    def count_route(self, route):
+        self.routes[route] = self.routes.get(route, 0) + 1
+
+    def mats(self, device, carry="bf16"):
+        """Window-folded DFT matrices on `device`, built once: bf16 (B2's
+        and the batch loop's, `gl_cuda.gl_mats`) or f32 (the stream loop's,
+        `stft.griffin_lim_mats(..., carry="f32")`)."""
+        key = (str(torch.device(device)), carry)
         if key not in self._mats:
-            self._mats[key] = gl_cuda.gl_mats(self.fft_size, self.window_np,
-                                              device)
+            self._mats[key] = dsp.griffin_lim_mats(
+                self.fft_size, self.window_np, device, carry)
         return self._mats[key]
 
     # -- file I/O (host) ----------------------------------------------------
@@ -219,7 +235,7 @@ class AudioProcessor:
         hop) waveform before inverse pre-emphasis, on the magnitudes'
         device, by `inversion_route` (counted in `routes`)."""
         route = self.inversion_route
-        self.routes[route] = self.routes.get(route, 0) + 1
+        self.count_route(route)
         fft, hop = self.fft_size, self.hop_size
         if route == "lws":
             return lws_phase.lws_run(S, fft, hop, self.window_np,

@@ -12,8 +12,10 @@ Both follow the Pallas kernel's numerics, not the JAX XLA loop's: bf16
 operands with f32 accumulation, f32 overlap-add times the pre-inverted
 normaliser, bf16 re-framed chunks, momentum in f32 against the bf16 previous
 projection, projection by rsqrt(a^2 + 1e-30), bf16 carries, and SPSI
-increments wrapped mod 2 pi before the frame cumsum. Framing needs
-hop | fft_size; other hops raise (dsp/stft.py `griffin_lim` takes them).
+increments wrapped mod 2 pi before the frame cumsum. The kernel takes every
+shape the Pallas kernel takes, any hop that divides fft_size (`b2_takes`,
+asked by every route choice); other hops raise (dsp/stft.py `griffin_lim`
+takes them).
 The iteration re-frames the untrimmed overlap-add signal, so it is the same
 for both framings of dsp/audio.py: `center` picks only the final trim (the
 lws framing keeps samples [0, hop n); the centred one drops the fft // 2
@@ -84,8 +86,17 @@ def gl_mats(fft_size, window, device=None, fold=True):
                  for m in dsp.dft_mats(fft_size))
 
 
+def b2_takes(fft_size, hop):
+    """True when kernel B2 (and its plain version) takes the framing: hop
+    divides fft_size, at any k = fft_size / hop. The Pallas kernel's guard
+    (`gl_pallas.fits_vmem`) asks the same of the shape; its VMEM budget has
+    no counterpart on the H100, where only a batch past 32-bit indexing
+    raises."""
+    return hop > 0 and fft_size % hop == 0
+
+
 def _check_shapes(magnitude, fft_size, hop):
-    if fft_size % hop:
+    if not b2_takes(fft_size, hop):
         raise ValueError("griffin_lim needs hop_size to divide fft_size "
                          "(got fft_size=%d hop_size=%d)" % (fft_size, hop))
     if magnitude.dim() != 3 or magnitude.shape[-1] != fft_size // 2 + 1:
@@ -133,7 +144,7 @@ def _mode(given, n_pinned, fold_windows, center=False):
     return "init" if given else "batch"
 
 
-def anchored_start(S, fft_size, hop, context_spec):
+def anchored_start(S, fft_size, hop, context_spec, unwrapped=False):
     """The start of a streaming window, in plain PyTorch: (i_re, i_im, n_ctx).
     S (B, n, F) f32 magnitudes; context_spec: the previous window's retrieved
     (re, im) of this window's first n_ctx frames, each (B, n_ctx, F), or None.
@@ -141,8 +152,12 @@ def anchored_start(S, fft_size, hop, context_spec):
     shifted per bin so that it meets the retrieved phase of the last context
     frame: phi + atan2(pim[-1], pre[-1]) - phi[n_ctx - 1]. Without a context
     every frame gets the SPSI start. Griffin-Lim re-imposes the magnitudes on
-    this start (the given-start rule) and pins the context frames."""
-    phi = dsp.spsi_phase(S, fft_size, hop)
+    this start (the given-start rule) and pins the context frames.
+    unwrapped: the SPSI phase of the JAX package's stream vocoder
+    (`stft.spsi_phase_unwrapped`, for the general-hop loop) instead of
+    B2's wrapped one."""
+    phi = (dsp.spsi_phase_unwrapped if unwrapped else dsp.spsi_phase)(
+        S, fft_size, hop)
     if context_spec is None:
         return S * torch.cos(phi), S * torch.sin(phi), 0
     pre, pim = context_spec
@@ -167,20 +182,29 @@ SMS = 132   # streaming multiprocessors of the H100 the plan fills
 Plan = collections.namedtuple("Plan", "route bm bn_syn bn_ana one_launch")
 
 
+def frame_stride(fft_size):
+    """Elements between rows of the kernel's frames and re-framed signal:
+    fft_size rounded up to 64 (16-byte TMA rows for any fft; the synthesis
+    tiles write the zero columns past fft_size, and nothing reads them)."""
+    return _round_up(fft_size, 64)
+
+
 def gl_plan(B, n, fft_size, hop):
     """Route and tiles of a (B, n, F) retrieval, from the shape alone.
-    The batch route's 128 x 256 synthesis tiles must give at least one tile
-    per SM; otherwise the window route: 128 x 128 tiles where 64 x 64 ones
-    would number two per SM or more (narrow tiles re-read their operands
-    from L2 once per tile), else 64-row tiles 64 columns wide if that fills
-    the SMs, else 32. Neither GEMM is split along K: on the H100 the
-    partial sums cost more than the idle SMs they would fill (PERF.md)."""
+    The batch route's 128 x 256 synthesis tiles must divide the frame
+    stride (`frame_stride`) and give at least one tile per SM; otherwise the
+    window route: 128 x 128 tiles where 64 x 64 ones would number two per SM
+    or more and divide the stride (narrow tiles re-read their operands from
+    L2 once per tile), else 64-row tiles 64 columns wide if that fills the
+    SMs, else 32. Neither GEMM is split along K: on the H100 the partial
+    sums cost more than the idle SMs they would fill (PERF.md)."""
     del hop   # the tiles do not depend on it: the analysis reads a16 frames
     M = B * n
-    if fft_size % 256 == 0 and -(-M // 128) * (fft_size // 256) >= SMS:
+    fs = frame_stride(fft_size)
+    if fs % 256 == 0 and -(-M // 128) * (fs // 256) >= SMS:
         return Plan("batch", 128, 256, 208, False)
-    tiles64 = -(-M // 64) * (fft_size // 64)
-    if tiles64 >= 2 * SMS and fft_size % 128 == 0:
+    tiles64 = -(-M // 64) * (fs // 64)
+    if tiles64 >= 2 * SMS and fs % 128 == 0:
         bm, bn = 128, 128
     else:
         bm, bn = 64, 64 if tiles64 >= SMS else 32
@@ -206,11 +230,12 @@ def gl_operands(mats):
     """(synT, anaT) of `mats` (gl_mats(...), either fold mode), built once on
     their device and cached: synT (fft, Kp) bf16 with synT[t, 2f] = inverse
     re[f, t], synT[t, 2f + 1] = inverse im[f, t] (Kp = 2F rounded up to 8;
-    the kernel never reads the columns past 2F); anaT (2F, fft) bf16 with
-    anaT[2f] = forward re[:, f], anaT[2f + 1] = forward im[:, f]. A different
-    tuple of tensors, or one written in place since (`_version`), builds
-    anew (an inference tensor keeps no version: only a new tuple rebuilds);
-    the cache holds the last eight."""
+    the kernel never reads the columns past 2F); anaT (2F, fft rounded up
+    to 8) bf16 with anaT[2f] = forward re[:, f], anaT[2f + 1] = forward
+    im[:, f] (16-byte rows; the kernel never reads the columns past fft,
+    which are zero). A different tuple of tensors, or one written in place
+    since (`_version`), builds anew (an inference tensor keeps no version:
+    only a new tuple rebuilds); the cache holds the last eight."""
     mats = tuple(mats)
     versions = tuple(None if m.is_inference() else m._version for m in mats)
     with _OPERANDS_LOCK:
@@ -226,9 +251,10 @@ def gl_operands(mats):
                        device=m0.device)
     synT[:, 0:2 * F:2] = m2.t()
     synT[:, 1:2 * F:2] = m3.t()
-    anaT = torch.empty(2 * F, fft_size, dtype=m0.dtype, device=m0.device)
-    anaT[0::2] = m0.t()
-    anaT[1::2] = m1.t()
+    anaT = torch.zeros(2 * F, _round_up(fft_size, 8), dtype=m0.dtype,
+                       device=m0.device)
+    anaT[0::2, :fft_size] = m0.t()
+    anaT[1::2, :fft_size] = m1.t()
     with _OPERANDS_LOCK:
         _OPERANDS.insert(0, (mats, versions, (synT, anaT)))
         del _OPERANDS[8:]
@@ -364,8 +390,8 @@ class _Args(ctypes.Structure):
         "pin", "frames", "a16", "out", "spec_re", "spec_im", "sync", "trace")]
         + [("init_stride", ctypes.c_longlong)]
         + [(n, ctypes.c_int) for n in (
-            "B", "n", "F", "fft", "hop", "Kp", "n_iters", "init", "n_pinned",
-            "fold", "route", "bm", "bn", "one_launch")]
+            "B", "n", "F", "fft", "hop", "Kp", "fs", "n_iters", "init",
+            "n_pinned", "fold", "route", "bm", "bn", "one_launch")]
         + [("momentum", ctypes.c_float), ("omega_scale", ctypes.c_float)])
 
 
@@ -418,23 +444,25 @@ def _griffin_lim_cuda(magnitude, fft_size, hop, window, *, mats, n_iters=16,
     globaltimer (ns) at the start and the end of each step and, in the last
     row, the block's SM (a block that did not run keeps zeros). center:
     the caller trims the centred framing's padding (counted as "center")."""
-    if fft_size % 64 or hop % 4 or fft_size // hop > 4:
-        raise ValueError("the CUDA Griffin-Lim needs fft_size % 64 == 0, "
-                         "hop % 4 == 0 and fft_size / hop <= 4 (got %d, %d)"
-                         % (fft_size, hop))
+    _check_shapes(magnitude, fft_size, hop)
     dev = magnitude.device
     S = magnitude.float().contiguous()
     B, n, F = S.shape
-    if B * (n + fft_size // hop) * max(2 * F, fft_size) >= 2 ** 31:
-        raise ValueError("griffin_lim: batch too large for 32-bit indexing")
+    fs = frame_stride(fft_size)
+    if B * (n + fft_size // hop) * max(_row_pad(F), fs) >= 2 ** 31:
+        raise ValueError("griffin_lim: a batch of %d x %d frames at "
+                         "fft_size=%d is too large for the kernel's 32-bit "
+                         "indexing; split it" % (B, n, fft_size))
     synT, anaT = gl_operands(mats)
     if synT.device != dev or synT.dtype != torch.bfloat16 or \
-            tuple(anaT.shape) != (2 * F, fft_size):
+            tuple(anaT.shape) != (2 * F, _round_up(fft_size, 8)):
         raise ValueError("griffin_lim: mats must be gl_mats(...) on %s" % dev)
     plan = gl_plan(B, n, fft_size, hop) if plan is None else plan
-    if plan.route == "batch" and fft_size % 256:
-        raise ValueError("griffin_lim: the batch route takes fft_size % 256 "
-                         "== 0, got %d" % fft_size)
+    bn_syn = 256 if plan.route == "batch" else plan.bn_syn
+    if fs % bn_syn:
+        raise ValueError("griffin_lim: %d-column synthesis tiles do not "
+                         "divide the frame stride %d (fft_size=%d)"
+                         % (bn_syn, fs, fft_size))
     nb = n + fft_size // hop - 1
     M, Kp = B * n, synT.shape[1]
     win, inorm = _device_consts(fft_size, hop, n, np.asarray(
@@ -459,10 +487,10 @@ def _griffin_lim_cuda(magnitude, fft_size, hop, window, *, mats, n_iters=16,
     # One allocation for the scratch (every element the kernel reads it
     # writes first: no zero fills): carry c (M, Kp) bf16, previous
     # projection (M, 2F) bf16, pinned starts (B, n_pinned, 2F) bf16, frames
-    # (M, fft) f32, re-framed signal a16 (M, fft) bf16; and one for the
+    # (M, fs) f32, re-framed signal a16 (M, fs) bf16; and one for the
     # results: the waveform and the returned spectrum.
-    sizes = (2 * M * Kp, 4 * M * F, 4 * B * n_pinned * F, 4 * M * fft_size,
-             2 * M * fft_size)
+    sizes = (2 * M * Kp, 4 * M * F, 4 * B * n_pinned * F, 4 * M * fs,
+             2 * M * fs)
     scratch = torch.empty(sum(_round_up(s, 256) for s in sizes),
                           dtype=torch.uint8, device=dev)
     ptrs, at = [], scratch.data_ptr()
@@ -483,7 +511,7 @@ def _griffin_lim_cuda(magnitude, fft_size, hop, window, *, mats, n_iters=16,
                  anaT.data_ptr(), win.data_ptr(), _ptr(init_re),
                  _ptr(init_im), c, tp, pin, frames, a16, out.data_ptr(),
                  _ptr(spec_re), _ptr(spec_im), _ptr(sync), _ptr(trace),
-                 init_stride, B, n, F, fft_size, hop, Kp, n_iters,
+                 init_stride, B, n, F, fft_size, hop, Kp, fs, n_iters,
                  INIT_CODES[init], n_pinned, int(fold_windows),
                  ROUTE_CODES[plan.route], plan.bm, plan.bn_syn,
                  int(plan.one_launch), momentum,

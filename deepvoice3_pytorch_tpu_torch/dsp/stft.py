@@ -263,80 +263,128 @@ def spsi_phase_unwrapped(magnitude, fft_size, hop):
 
 
 # ---------------------------------------------------------------------------
-# Griffin-Lim for any hop (the JAX package's XLA loop, bf16 carry)
+# Griffin-Lim for any hop (the JAX package's XLA loop)
 # ---------------------------------------------------------------------------
 
+CARRIES = ("bf16", "f32")
 
-def griffin_lim_mats(fft_size, window, device=None):
-    """The loop's bf16 DFT operands: the analysis window on the forward
-    rows, the synthesis window on the inverse columns, folded in f32 and
-    rounded once (what `gl_cuda.gl_mats` gives)."""
+
+def griffin_lim_mats(fft_size, window, device=None, carry="bf16"):
+    """The loop's DFT operands: the analysis window on the forward rows,
+    the synthesis window on the inverse columns, folded in f32; for the
+    bf16 carry rounded to bf16 once (what `gl_cuda.gl_mats` gives), for the
+    f32 one kept in f32 (JAX folds its f32 `dft_mats` the same way)."""
+    if carry not in CARRIES:
+        raise ValueError("carry must be one of %s, got %r" % (CARRIES, carry))
     w = torch.from_numpy(np.asarray(window, np.float32))
     m0, m1, m2, m3 = (torch.from_numpy(m) for m in dft_mats(fft_size))
-    return tuple(m.to(torch.bfloat16).to(device) for m in (
+    dtype = torch.bfloat16 if carry == "bf16" else torch.float32
+    return tuple(m.to(dtype).to(device) for m in (
         m0 * w[:, None], m1 * w[:, None], m2 * w[None, :], m3 * w[None, :]))
 
 
 def griffin_lim(magnitude, fft_size, hop, window, *, n_iters=16,
                 momentum=0.9, phase_init="spsi", center=False, length=None,
-                mats=None):
+                mats=None, init_spec=None, pinned_prefix=None,
+                return_spec=False, carry="bf16"):
     """Momentum Griffin-Lim for any hop, on any device: the JAX package's
-    `stft.griffin_lim` at its shipped defaults (griffin_lim_carry_dtype
-    "bfloat16", no matmul dtype): the carry, the synthesised frames and
-    the re-framed signal in bf16, every DFT product a bf16 x bf16 matmul
-    summed in f32, momentum and the magnitude projection in f32, the last
-    synthesis in f32. The loop re-frames the untrimmed overlap-add signal,
-    so it is the same for both framings: center only picks the trim
-    (True drops fft_size // 2 samples). Overlap-add is `overlap_add` (a
-    fold when hop does not divide fft_size), summed in f32 and rounded to
-    bf16 once.
+    `stft.griffin_lim`, in one of the two schedules its callers run.
+
+    carry="bf16": the batch vocoder's (its shipped griffin_lim_carry_dtype
+    "bfloat16", no matmul dtype): the carry, the synthesised frames and the
+    re-framed signal in bf16, every DFT product a bf16 x bf16 matmul summed
+    in f32, momentum and the magnitude projection in f32, the last
+    synthesis in f32. Overlap-add is `overlap_add` (a fold when hop does
+    not divide fft_size), summed in f32 and rounded to bf16 once.
+    carry="f32": the stream vocoder's (JAX's `StreamingVocoder` passes no
+    carry or matmul dtype): everything in f32, f32 products on f32
+    matrices. On the card the f32 products need TF32 off, torch's default
+    (`ops.core.strict_numerics` keeps it off; nothing in the package turns
+    it on).
+
+    The loop re-frames the untrimmed overlap-add signal, so it is the same
+    for both framings: center only picks the trim (True drops fft_size // 2
+    samples).
 
     magnitude (..., n, F); window numpy (fft,); phase_init "spsi" (the
     unwrapped start, `spsi_phase_unwrapped`) or "zero"; mats:
-    `griffin_lim_mats` on the magnitudes' device. Returns (..., T)."""
+    `griffin_lim_mats(..., carry=carry)` on the magnitudes' device.
+    init_spec=(re, im), shaped like the magnitudes: an explicit start
+    (overrides phase_init), the magnitudes re-imposed on it. pinned_prefix=
+    (re, im), each (..., n_pin, F): the first n_pin frames are set to it
+    after every iteration (a stream window's already-played context).
+    Returns (..., T), and with return_spec (waveform, (re, im)) with the
+    final carry in f32."""
     if phase_init not in ("spsi", "zero"):
         raise ValueError("phase_init must be 'spsi' or 'zero'")
-    bf16 = torch.bfloat16
+    if carry not in CARRIES:
+        raise ValueError("carry must be one of %s, got %r" % (CARRIES, carry))
     S = magnitude.float()
+    if init_spec is not None and any(
+            tuple(a.shape) != tuple(S.shape) for a in init_spec):
+        raise ValueError("griffin_lim: init_spec must be shaped like the "
+                         "magnitudes %s" % (tuple(S.shape),))
     dev = S.device
     if mats is None:
-        mats = griffin_lim_mats(fft_size, window, dev)
+        mats = griffin_lim_mats(fft_size, window, dev, carry)
+    if carry == "f32" and any(m.dtype != torch.float32 for m in mats):
+        raise ValueError("griffin_lim: the f32 carry takes f32 mats "
+                         "(griffin_lim_mats(..., carry='f32'))")
+    lp = (lambda a: a.to(torch.bfloat16)) if carry == "bf16" \
+        else (lambda a: a)       # the carry's rounding
     m_fwd_re, m_fwd_im, m_inv_re, m_inv_im = (m.float() for m in mats)
     win = torch.from_numpy(np.asarray(window, np.float32)).to(dev)
     n = S.shape[-2]
     wsq = (win * win).expand(n, fft_size)
     inv_norm = 1.0 / torch.clamp_min(overlap_add(wsq, fft_size, hop), 1e-8)
-    inv_norm_c = inv_norm.to(bf16).float()
+    inv_norm_c = lp(inv_norm).float()
     eps = 1e-16
 
     def synth(c_re, c_im):
         return c_re.float() @ m_inv_re + c_im.float() @ m_inv_im
 
     def project(c_re, c_im):
-        frames = synth(c_re, c_im).to(bf16)
-        ola = overlap_add(frames.float(), fft_size, hop).to(bf16)
-        x = (ola.float() * inv_norm_c).to(bf16)
-        f2 = x.float().unfold(-1, fft_size, hop)
+        frames = lp(synth(c_re, c_im)).float()
+        ola = lp(overlap_add(frames, fft_size, hop)).float()
+        f2 = lp(ola * inv_norm_c).float().unfold(-1, fft_size, hop)
         return f2 @ m_fwd_re, f2 @ m_fwd_im
 
-    if phase_init == "spsi":
-        phi = spsi_phase_unwrapped(S, fft_size, hop)
-        c_re = (S * torch.cos(phi)).to(bf16)
-        c_im = (S * torch.sin(phi)).to(bf16)
+    if pinned_prefix is not None:
+        pin_re, pin_im = (a.float() for a in pinned_prefix)
+        n_pin = pin_re.shape[-2]
+
+        def pin(re, im):
+            return (torch.cat([pin_re, re[..., n_pin:, :]], dim=-2),
+                    torch.cat([pin_im, im[..., n_pin:, :]], dim=-2))
     else:
-        c_re, c_im = S.to(bf16), torch.zeros_like(S, dtype=bf16)
-    tp_re = tp_im = torch.zeros_like(S, dtype=bf16)
+        def pin(re, im):
+            return re, im
+
+    if init_spec is not None:
+        i_re, i_im = (a.float() for a in init_spec)
+        mag0 = torch.clamp_min(torch.sqrt(i_re * i_re + i_im * i_im), eps)
+        c_re, c_im = lp(S * i_re / mag0), lp(S * i_im / mag0)
+    elif phase_init == "spsi":
+        phi = spsi_phase_unwrapped(S, fft_size, hop)
+        c_re, c_im = lp(S * torch.cos(phi)), lp(S * torch.sin(phi))
+    else:
+        c_re, c_im = lp(S), lp(torch.zeros_like(S))
+    tp_re = tp_im = lp(torch.zeros_like(S))
     for _ in range(n_iters):
         t_re, t_im = project(c_re, c_im)
         a_re = t_re + momentum * (t_re - tp_re.float())
         a_im = t_im + momentum * (t_im - tp_im.float())
         mag = torch.clamp_min(torch.sqrt(a_re * a_re + a_im * a_im), eps)
-        c_re, c_im = (S * a_re / mag).to(bf16), (S * a_im / mag).to(bf16)
-        tp_re, tp_im = t_re.to(bf16), t_im.to(bf16)
+        c_re, c_im = pin(S * a_re / mag, S * a_im / mag)
+        c_re, c_im = lp(c_re), lp(c_im)
+        tp_re, tp_im = lp(t_re), lp(t_im)
     y = overlap_add(synth(c_re, c_im), fft_size, hop) * inv_norm
     if center:
         y = y[..., fft_size // 2:]
-    return y[..., :hop * n if length is None else length]
+    y = y[..., :hop * n if length is None else length]
+    if return_spec:
+        return y, (c_re.float(), c_im.float())
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,9 @@ utterance. Everything runs where the parameters live.
      context.
   3. Vocoder: `StreamingVocoder`, phase-coherent windowed Griffin-Lim. Each
      window re-retrieves `gl_context` already-played frames pinned to their
-     retrieved spectrum (kernel B2 with init_spec / n_pinned / return_spec on
-     the card), anchors the new frames' SPSI phase to the context, and holds
+     retrieved spectrum (kernel B2's anchored mode on the card where hop |
+     fft, else the general-hop loop in f32, `gl_window`), anchors the new
+     frames' SPSI phase to the context, and holds
      back `gl_lookahead` frames; adjacent emissions are crossfaded, and the
      inverse pre-emphasis IIR runs on the host (scipy lfilter with carried
      state; dsp/stft.py:inv_preemphasis_carry is the on-device equivalent).
@@ -29,6 +30,7 @@ import torch
 
 from .builder import embed_speakers, model_postnet
 from .dsp import gl_cuda
+from .dsp import stft as dsp
 from .ops import core
 from .ops import fused_decode as fd
 from .synthesis import _param_device, _prepare_batch, speaker_id_tensor
@@ -120,16 +122,33 @@ def launch_chunk(dec, carry, outputs, t0, steps):
 def gl_window(ap, spec, prev_spec, iters):
     """One vocoder window, shared by StreamingVocoder and the continuous-
     batching emission (serving.py): denormalize + power, then one Griffin-
-    Lim call (kernel B2 on the card) from the anchored SPSI start
-    (`gl_cuda.anchored_start`, computed inside the kernel) with the context
-    frames pinned. spec: (B, n, F) normalized linear frames whose first
-    n_ctx frames are context; prev_spec: their retrieved (re, im), each (B,
-    n_ctx, F), or None. Returns (waveform, retrieved (re, im))."""
+    Lim call from the anchored SPSI start (`gl_cuda.anchored_start`) with
+    the context frames pinned, on `ap.window_route` (counted in
+    `ap.routes`):
+      * "b2" (hop | fft): kernel B2 on the card, the start computed inside
+        the kernel;
+      * "general" (any other hop): the JAX stream vocoder's fallback, the
+        loop of dsp/stft.py `griffin_lim` in f32 throughout (JAX passes no
+        carry or matmul dtype there) from the unwrapped SPSI start, the
+        context frames pinned to prev_spec as given.
+    spec: (B, n, F) normalized linear frames whose first n_ctx frames are
+    context; prev_spec: their retrieved (re, im), each (B, n_ctx, F), or
+    None. Returns (waveform (B, n * hop), retrieved (re, im))."""
     S = ap._denorm_pow(spec.float())
-    return gl_cuda.griffin_lim(
-        S, ap.fft_size, ap.hop_size, ap.window_np, n_iters=iters,
-        momentum=ap.gl_momentum, mats=ap.mats(S.device),
-        phase_init="anchored", context_spec=prev_spec, return_spec=True)
+    fft, hop = ap.fft_size, ap.hop_size
+    route = ap.window_route
+    ap.count_route(route)
+    if route == "b2":
+        return gl_cuda.griffin_lim(
+            S, fft, hop, ap.window_np, n_iters=iters,
+            momentum=ap.gl_momentum, mats=ap.mats(S.device),
+            phase_init="anchored", context_spec=prev_spec, return_spec=True)
+    i_re, i_im, _ = gl_cuda.anchored_start(S, fft, hop, prev_spec,
+                                           unwrapped=True)
+    return dsp.griffin_lim(
+        S, fft, hop, ap.window_np, n_iters=iters, momentum=ap.gl_momentum,
+        mats=ap.mats(S.device, carry="f32"), init_spec=(i_re, i_im),
+        pinned_prefix=prev_spec, return_spec=True, carry="f32")
 
 
 def require_causal_framing(ap):

@@ -23,8 +23,8 @@ same state.
     [clip_by_global_norm], adam(schedule))`: Adam's count (int32, 0-d),
     its `mu` and then its `nu` in `jax.tree` order (dict keys sorted as
     strings, list entries in numeric order: `layers.10` after `layers.9`),
-    then the schedule's count. Both counts are the port's
-    `AdamState.count`.
+    then the schedule's count. With amsgrad in adam's place, its `nu_max`
+    follows `nu`. Both counts are the port's `AdamState.count`.
   * `opt_fingerprint` is JAX's `opt_state_fingerprint` of that chain, the
     hash of a description built from optax's class names and the leaf
     shapes; either package refuses a file whose fingerprint differs from
@@ -50,6 +50,7 @@ from torch import nn
 from ..utils import msgpack
 
 _ADAM = "ScaleByAdamState"
+_AMSGRAD = "ScaleByAmsgradState"
 _SCHEDULE = "ScaleByScheduleState"
 _EMPTY = "EmptyState"
 
@@ -108,38 +109,48 @@ def opt_state_fingerprint(opt_state, params):
     AdamState of `trainer.Optimizer`) stands for, over the tree of
     `params`."""
     tree = _desc(param_tree(params))
-    adam = "[%s(count:int32(),mu:%s,nu:%s),%s(count:int32())]" % (
-        _ADAM, tree, tree, _SCHEDULE)
+    if opt_state.nu_max is None:
+        scale = "%s(count:int32(),mu:%s,nu:%s)" % (_ADAM, tree, tree)
+    else:
+        scale = "%s(count:int32(),mu:%s,nu:%s,nu_max:%s)" % (
+            _AMSGRAD, tree, tree, tree)
+    adam = "[%s,%s(count:int32())]" % (scale, _SCHEDULE)
     desc = "[" + ",".join(["%s()" % _EMPTY] * len(opt_state.transforms)
                           + [adam]) + "]"
     return hashlib.sha256(desc.encode()).hexdigest()[:16]
 
 
+def _moments(opt_state, names):
+    """The moment tensors in optax's leaf order: mu, nu (and nu_max)."""
+    planes = [opt_state.mu, opt_state.nu] + (
+        [] if opt_state.nu_max is None else [opt_state.nu_max])
+    return [p[k] for p in planes for k in names]
+
+
 def flatten_opt_state(opt_state, params):
-    """optax's leaf list of the chain: [count, mu..., nu..., count], the
-    moments as tensors in JAX's order of `params`' names."""
+    """optax's leaf list of the chain: [count, mu..., nu..., count] (adam)
+    or [count, mu..., nu..., nu_max..., count] (amsgrad), the moments as
+    tensors in JAX's order of `params`' names."""
     names = [k for k, _ in jax_order(param_tree(params))]
     count = torch.tensor(opt_state.count, dtype=torch.int32)
-    return ([count] + [opt_state.mu[k] for k in names]
-            + [opt_state.nu[k] for k in names] + [count])
+    return [count] + _moments(opt_state, names) + [count]
 
 
 def unflatten_opt_state(template, leaves, params):
     """Copy optax's leaf list into the moments of `template` (an AdamState)
     in place; returns the AdamState with the saved count."""
     names = [k for k, _ in jax_order(param_tree(params))]
-    if len(leaves) != 2 * len(names) + 2:
+    targets = _moments(template, names)
+    if len(leaves) != len(targets) + 2:
         raise ValueError(
             "optimizer state mismatch: checkpoint has %d leaves, current "
             "optimizer expects %d -- resume with reset_optimizer=True "
             "(--reset-optimizer) or rebuild the matching optimizer"
-            % (len(leaves), 2 * len(names) + 2))
+            % (len(leaves), len(targets) + 2))
     counts = [int(np.asarray(leaves[0])), int(np.asarray(leaves[-1]))]
     if counts[0] != counts[1]:
         raise ValueError("Adam's count %d and the schedule's count %d "
                          "differ; the port keeps one" % tuple(counts))
-    targets = [template.mu[k] for k in names] + [template.nu[k]
-                                                 for k in names]
     for i, (t, leaf) in enumerate(zip(targets, leaves[1:-1])):
         _copy_into(t, leaf, "optimizer state leaf %d" % (i + 1))
     return template._replace(count=counts[0])

@@ -11,6 +11,8 @@ reproduces optax's `chain(add_decayed_weights?, clip_by_global_norm, adam)`
 exactly: the clip scales by max_norm / g_norm only when g_norm >= max_norm,
 the learning rate of update k (from 0) is lr_fn(k), Adam's bias correction
 uses k + 1, and `grad_norm` is taken after the mask and before the clip.
+`hparams.amsgrad` swaps adam for optax's amsgrad (`scale_by_amsgrad`: the
+running maximum of the bias-corrected second moment in the denominator).
 (`torch.nn.utils.clip_grad_norm_` and `torch.optim.Adam` with `LambdaLR`
 differ in the norm's epsilon and the step index.)
 
@@ -46,6 +48,9 @@ class AdamState(NamedTuple):
     # leaves ("add_decayed_weights", "clip_by_global_norm"): a checkpoint's
     # optimizer fingerprint names them (training/checkpoint.py)
     transforms: tuple = ()
+    # amsgrad: dotted name -> the running maximum of the bias-corrected
+    # second moment (optax's ScaleByAmsgradState.nu_max); None for adam
+    nu_max: Any = None
 
 
 class LossConfig(NamedTuple):
@@ -86,22 +91,26 @@ def make_lr_fn(hp):
 
 class Optimizer(NamedTuple):
     """optax.chain(add_decayed_weights(weight_decay) if > 0,
-    clip_by_global_norm(clip_thresh) if > 0, adam(lr_fn, b1, b2, eps))."""
+    clip_by_global_norm(clip_thresh) if > 0, adam(lr_fn, b1, b2, eps)), or
+    amsgrad(lr_fn, b1, b2, eps) in adam's place."""
     lr_fn: Any
     b1: float
     b2: float
     eps: float
     clip_thresh: float = 0.0
     weight_decay: float = 0.0
+    amsgrad: bool = False
 
     def init(self, params):
         """params: dotted name -> tensor."""
         transforms = (("add_decayed_weights",) if self.weight_decay > 0
                       else ()) + (("clip_by_global_norm",)
                                   if self.clip_thresh > 0 else ())
-        return AdamState(
-            0, {k: torch.zeros_like(v) for k, v in params.items()},
-            {k: torch.zeros_like(v) for k, v in params.items()}, transforms)
+        def zeros():
+            return {k: torch.zeros_like(v) for k, v in params.items()}
+
+        return AdamState(0, zeros(), zeros(), transforms,
+                         zeros() if self.amsgrad else None)
 
     def apply(self, params, grads, state):
         """Update `params` and the moments in place from `grads` (dotted
@@ -135,7 +144,14 @@ class Optimizer(NamedTuple):
         count_inc = state.count + 1
         bc1 = float(1.0 - torch.tensor(self.b1) ** count_inc)
         bc2 = float(1.0 - torch.tensor(self.b2) ** count_inc)
-        denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+        nu_hat = torch._foreach_div(nu, bc2)
+        if self.amsgrad:
+            # optax's scale_by_amsgrad: nu_max = max(nu_max, nu_hat), and
+            # the update divides by sqrt(nu_max) + eps
+            nu_max = [state.nu_max[k] for k in names]
+            torch._foreach_maximum_(nu_max, nu_hat)
+            nu_hat = nu_max
+        denom = torch._foreach_sqrt(nu_hat)
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
         lr = float(self.lr_fn(state.count))
@@ -145,13 +161,12 @@ class Optimizer(NamedTuple):
 
 
 def make_optimizer(hp, lr_fn):
-    """Adam(beta1, beta2, eps) with the global-norm clip and optional weight
-    decay."""
-    if getattr(hp, "amsgrad", False):
-        raise NotImplementedError("amsgrad is not ported")
+    """Adam(beta1, beta2, eps), or AMSGrad with hp.amsgrad, with the
+    global-norm clip and optional weight decay."""
     return Optimizer(lr_fn, hp.adam_beta1, hp.adam_beta2, hp.adam_eps,
                      clip_thresh=hp.clip_thresh,
-                     weight_decay=getattr(hp, "weight_decay", 0.0))
+                     weight_decay=getattr(hp, "weight_decay", 0.0),
+                     amsgrad=bool(getattr(hp, "amsgrad", False)))
 
 
 def global_norm(tensors):

@@ -7,7 +7,9 @@ save_q / linear2, speaker biases, finished position encodings), ring
 buffers placed in device memory under a small shared-memory budget and at
 the nyanko preset's width, tile edges of the Griffin-Lim GEMMs, its streaming
 modes (given start, pinned frames, returned spectrum) and unfolded
-windows, a tiny model's stream on the card against the CPU, B1's serving
+windows, Griffin-Lim at every framing with hop | fft (k = 8 and 16, hops
+off 4, ffts off 8 and 64) and a narrow model's tts_batch at hop 128, a
+tiny model's stream on the card against the CPU, B1's serving
 modes (per-row positions and context scales, a text-bucket growth between
 launches, a ring placement that changes with the bucket), a tiny model's
 continuous batcher on the card against the CPU, and the ragged
@@ -1050,3 +1052,132 @@ def test_features_card_match_cpu(dev, overrides):
         for a, b in ((lg, lc), (mg, mc)):
             d = np.abs(a - b)
             assert d.mean() <= 1e-5 and (d > 2e-4).mean() <= 1e-3
+
+
+# kernel B2 at every framing the Pallas kernel takes (hop | fft): k = fft /
+# hop up to 16, hops off 4 (the scalar overlap-add), fft off 64 (frame rows
+# padded to 64) and off 8 (analysis rows padded to 8), on the route and
+# tiles each shape's plan names
+B2_SHAPES = [  # fft, hop, B, n, route
+    (1024, 128, 2, 37, "window"),     # k = 8
+    (1024, 128, 12, 379, "batch"),
+    (2048, 256, 12, 379, "batch"),    # k = 8 at fft 2048
+    (1024, 64, 2, 40, "window"),      # k = 16
+    (800, 200, 2, 37, "window"),      # fft % 64 = 32: 64 x 32 tiles
+    (800, 200, 12, 379, "window"),    # 64 x 64 (the stride 832 is off 128)
+    (1100, 275, 2, 37, "window"),     # hop % 4 = 3, fft % 8 = 4
+    (1100, 275, 12, 379, "window"),   # 128 x 128 tiles on the 1152 stride
+    (256, 32, 3, 21, "window"),
+    (200, 50, 3, 21, "window"),       # hop % 4 = 2
+    (132, 33, 3, 21, "window"),
+]
+
+
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("fft,hop,B,n,route", B2_SHAPES)
+def test_griffin_lim_kernel_takes_every_framing(dev, fft, hop, B, n, route,
+                                                fold):
+    """B2 (and P, fold=False) against its plain version at 0 and 1
+    iterations, SPSI start: 3e-3 of the peak, the bar of
+    test_griffin_lim_kernel_matches_plain; the route the plan names; two
+    runs bit-equal."""
+    g = torch.Generator().manual_seed(5)
+    S = (torch.rand(B, n, fft // 2 + 1, generator=g) ** 2).to(dev)
+    win = dsp.lws_hann_window(fft, hop)
+    assert gl_cuda.b2_takes(fft, hop)
+    assert gl_cuda.gl_plan(B, n, fft, hop).route == route
+    for n_iters in (0, 1):
+        gl_cuda.KERNEL.reset_counts()
+        got = gl_cuda.griffin_lim(S, fft, hop, win, n_iters=n_iters,
+                                  fold_windows=fold)
+        assert gl_cuda.KERNEL.by_route == {route: 1}
+        assert torch.equal(got, gl_cuda.griffin_lim(
+            S, fft, hop, win, n_iters=n_iters, fold_windows=fold))
+        want = gl_cuda.griffin_lim_plain(S, fft, hop, win, n_iters=n_iters,
+                                         fold_windows=fold)[:, :n * hop]
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        rel = float((got - want).abs().max() / want.abs().max())
+        assert rel <= 3e-3, (n_iters, rel)
+
+
+@pytest.mark.parametrize("fft,hop,B,n,route", [
+    s for s in B2_SHAPES if s[:2] in ((1024, 128), (800, 200), (1100, 275))])
+def test_griffin_lim_stream_modes_take_every_framing(dev, fft, hop, B, n,
+                                                     route):
+    """The anchored start with a context, the pinned frames and the
+    returned spectrum at the new framings, against the plain version at the
+    bars of test_griffin_lim_anchored_start_matches_plain: the start
+    bit-equal, the waveform 3e-3 of the peak after 2 iterations, the
+    returned spectrum 2^-8 in relative L2 norm, the context frames exact."""
+    F = fft // 2 + 1
+    n_ctx = 8
+    g = torch.Generator().manual_seed(6)
+    S = (torch.rand(B, n, F, generator=g) ** 2).to(dev)
+    ctx = tuple(torch.randn(B, n_ctx, F, generator=g).to(dev)
+                for _ in range(2))
+    win = dsp.lws_hann_window(fft, hop)
+    kw = dict(phase_init="anchored", context_spec=ctx, return_spec=True)
+    gl_cuda.KERNEL.reset_counts()
+    wav, spec = gl_cuda.griffin_lim(S, fft, hop, win, n_iters=2, **kw)
+    _, start = gl_cuda.griffin_lim(S, fft, hop, win, n_iters=0, **kw)
+    assert gl_cuda.KERNEL.by_entry == {"pinned": 2}
+    assert gl_cuda.KERNEL.by_route == {route: 2}
+    _, want_start = gl_cuda.griffin_lim_plain(S, fft, hop, win, n_iters=0,
+                                              **kw)
+    for a, b in zip(start, want_start):
+        assert torch.equal(a, b)
+    want, want_spec = gl_cuda.griffin_lim_plain(S, fft, hop, win, n_iters=2,
+                                                **kw)
+    want = want[:, :n * hop]
+    rel = float((wav - want).abs().max() / want.abs().max())
+    assert rel <= 3e-3, rel
+    c_got, c_want = torch.complex(*spec), torch.complex(*want_spec)
+    assert float((c_got - c_want).abs().norm() / c_want.abs().norm()) \
+        <= 2.0 ** -8
+    for got, st in zip(spec, start):
+        assert torch.equal(got[:, :n_ctx], st[:, :n_ctx])
+
+
+def test_griffin_lim_refusals_read_well(dev):
+    """Only a hop that does not divide fft (and a batch past 32-bit
+    indexing) is refused, each with a message that formats."""
+    S = torch.rand(1, 8, 513, device=dev)
+    with pytest.raises(ValueError, match="divide"):
+        gl_cuda.griffin_lim(S, 1024, 240, dsp.lws_hann_window(1024, 256))
+    big = torch.empty(2048, 2048, 513, device="meta")
+    with pytest.raises(ValueError, match="32-bit"):
+        gl_cuda._griffin_lim_cuda(big, 1024, 256,
+                                  dsp.lws_hann_window(1024, 256), mats=None)
+
+
+def test_tts_batch_at_hop_128_gpu_matches_cpu(dev):
+    """tts_batch of a narrow LJSpeech-structure model at fft 1024 / hop 128
+    (k = 8) on the card (route b2, B2 launched) against the CPU: decoded
+    steps exact, audio within 1.05x of the CPU's spectral convergence."""
+    import copy
+
+    from deepvoice3_pytorch_tpu_torch import hparams, model_builder
+    from deepvoice3_pytorch_tpu_torch import synthesis
+    from deepvoice3_pytorch_tpu_torch.dsp.audio import AudioProcessor
+    from deepvoice3_pytorch_tpu_torch.frontend import en
+
+    hp = hparams.default_hparams().parse(
+        "text_embed_dim=32,encoder_channels=32,decoder_channels=32,"
+        "converter_channels=32,hop_size=128")
+    cfg, params = model_builder.build_model(hp, en.n_vocab, seed=3,
+                                            device="cpu")
+    texts = ["Hello world at a finer hop.", "A second sentence to batch."]
+    ap_c, ap_g = AudioProcessor(hp), AudioProcessor(hp)
+    ref = synthesis.tts_batch(params, cfg, ap_c, en, texts,
+                              max_decoder_steps=40)
+    gl_cuda.KERNEL.reset_counts()
+    got = synthesis.tts_batch(copy.deepcopy(params).to(dev), cfg, ap_g, en,
+                              texts, max_decoder_steps=40)
+    assert ap_g.routes == {"b2": 1} and gl_cuda.KERNEL.by_entry == {"batch": 1}
+    for g_, r_ in zip(got, ref):
+        assert g_["num_decoder_steps"] == r_["num_decoder_steps"]
+        assert g_["waveform"].shape == r_["waveform"].shape
+        lin = ((r_["linear"] - ap_c.min_level_db) / -ap_c.min_level_db)[None]
+        sc = [_spectral_convergence(w["waveform"][None], lin.astype(
+            np.float32), ap_c) for w in (g_, r_)]
+        assert float(sc[0]) <= 1.05 * float(sc[1]), sc
