@@ -191,15 +191,38 @@ Phases, one line each; any failure exits non-zero before the result lines:
      second), `cli.train` 20 steps at B = 16 f32 on the card's corpus with
      every batch from the C++ loader (its first two batches equal to
      numpy's collate), and `cli.synthesis` of 8 sentences from the step-20
-     file (RTF). The smoke's whole time is printed before the result
-     lines.
+     file (RTF);
+ 18. the device mesh (phase `mesh`, parallel/mesh.py) at the LJSpeech
+     preset's full width, dropout 0: (a) a world of one over NCCL, mesh
+     (1, 1): 20 f32 train steps at B = 16 through B3 with and without the
+     mesh, in turns (without, with, with, without), losses, norms and
+     parameters bit-equal; ms a step of each, the collectives a step, the
+     flat all-reduce's bytes and ms alone and with its concatenation and
+     copy back; tts_batch(mesh=) of the 32 sentences against tts_batch
+     (tests/test_multichip.py's dp bars: mel / linear / alignment 3e-4,
+     waveform 5e-2, decoded steps equal; bit equality printed); (b) two
+     processes sharing the card over gloo (`--mesh-rank`), each CUDA
+     tensor staged through pinned host memory: 3 dp = 2 and 3 tp = 2 train
+     steps against (a)'s first 3 at phase 4's bars, B3's launches by route
+     and its forward shapes under tp, and dp = 2 tts_batch of the 32
+     sentences against the same rows synthesised in one process at B = 16
+     and the whole batch's text pad (the dp bars), its difference from the
+     B = 32 call printed beside (the kernels' and libraries' tilings
+     follow the batch size); times labelled as two processes on one card,
+     not a scaling figure; then B3 at the five tp = 2 shapes (each rank's
+     half of N) against its plain version and float64 (phase 3's f32 bar,
+     device ms beside cuDNN's and the bound), B1 and B2 at a rank's 16
+     rows against their plain versions (the B1 and B2 bars). A mismatch,
+     a rank that dies or a collective that raises fails the smoke. The
+     smoke's whole time is printed before the result lines.
 The line before the last is the kernels' JSON record (B1's launches
 summed over the three builders' main paths and the serving paths, its
 worst error over the four B1 phases; its times are the LJSpeech phase's;
 `fused_decode_slots` is the serving mode alone: its launches on the
 serving paths, B1_serve's error and times; `griffin_lim_stream` counts
 its launches on the stream and serving paths; every launch count adds
-the command lines'); the last line is
+the command lines' and phase mesh's, both ranks of (b) included); the last
+line is
 {"ok": true, "device": {...}}. Each record's "timing" names how its "ms"
 and "plain_ms" were taken: "host-paced" (cuda_ms: events around calls as
 the host issues them) or "device" (device_ms: the calls queued behind a
@@ -242,6 +265,17 @@ builds the kernels and runs the command lines' phases (16) alone.
     python3 chip_smoke.py --dsp-only
 
 builds the kernels and runs the DSP and preprocessing phases (17) alone.
+
+    python3 chip_smoke.py --train-turns PARENT_DIR
+
+times the one-process LJSpeech train step (B = 16 f32, kernel conv mode,
+three windows of 20 steps) on another checkout's package and on this one's,
+in the same turns; nothing else runs.
+
+    python3 chip_smoke.py --mesh-only
+
+builds the kernels and runs phase mesh (18) alone; it starts this script
+twice more as `--mesh-rank RANK 2 WORK`, the ranks of (b).
 """
 
 import copy
@@ -3845,6 +3879,60 @@ with core.strict_numerics():
 print(json.dumps({'%d_%s' % k: step for k, (_, step) in res.items()}))
 """
 
+# Run in a checkout's root with this script's path as its one argument: the
+# LJSpeech f32 train step at B = 16 (kernel conv mode, no mesh) on the
+# checkout's own package, timed by this script's time_steps (three windows
+# of 20 steps after 2 warm-up steps each).
+TRAIN_TURNS = r"""
+import importlib.util, json, sys, torch
+spec = importlib.util.spec_from_file_location('smoke', sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+sys.path.insert(0, '.')
+from deepvoice3_pytorch_tpu_torch import hparams, model_builder
+from deepvoice3_pytorch_tpu_torch.frontend import en
+from deepvoice3_pytorch_tpu_torch.ops import conv_cuda, core
+from deepvoice3_pytorch_tpu_torch.training import trainer
+cs.build_kernels((conv_cuda.KERNEL,))
+dev = torch.device('cuda', 0)
+hp = cs.ljspeech_hparams(hparams, '.')
+with core.strict_numerics():
+    cfg, params = model_builder.build_model(hp, en.n_vocab, seed=1234,
+                                            device=dev)
+    opt = trainer.make_optimizer(hp, trainer.make_lr_fn(hp))
+    step = trainer.make_train_step(
+        cfg, trainer.loss_config_from_hparams(hp), opt,
+        trainer.trainable_mask(params, cfg))
+    state = trainer.init_train_state(params, opt)
+    batch = cs.bench_batch(torch, hp, en.n_vocab, 16, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ms = []
+    for _ in range(3):
+        state, m, t = cs.time_steps(torch, step, state, batch, gen, 20)
+        ms.append(t)
+print(json.dumps({'ms_per_step': ms, 'loss': float(m['loss'])}))
+"""
+
+
+def train_turns(parent, card):
+    """The one-process LJSpeech train step (TRAIN_TURNS) on `parent`'s
+    package and this checkout's, in turns parent, this, this, parent, each
+    a fresh process; prints one JSON line."""
+    here = os.path.abspath(__file__)
+    turns = []
+    for name, tree in (("parent", parent), ("this", os.path.dirname(here)),
+                       ("this", os.path.dirname(here)), ("parent", parent)):
+        res = subprocess.run([sys.executable, "-c", TRAIN_TURNS, here],
+                             cwd=tree, capture_output=True, text=True,
+                             timeout=600)
+        if res.returncode != 0:
+            fail("train turn in %s: %s" % (tree, res.stderr[-2000:]))
+        turns.append([name, json.loads(res.stdout.strip().splitlines()[-1])])
+        phase("train_turns", "%s: %s (%s)" % (name, json.dumps(turns[-1][1]),
+                                              card))
+    print(json.dumps({"train_step_turns": turns, "card": card}), flush=True)
+
+
 B3_TURN_KEYS = ("ms", "library_ms", "vs_cudnn", "ms_host_paced",
                 "library_ms_host_paced", "vs_cudnn_host_paced", "routes")
 
@@ -4612,6 +4700,428 @@ def cli_phases(torch, pkg, repo, card, dev, device="cuda", extra_hp="",
     return ok, rows, launches
 
 
+# ---------------------------------------------------------------------------
+# the device mesh (phase mesh): parallel/mesh.py's data and tensor
+# parallelism on one card
+# ---------------------------------------------------------------------------
+
+MESH_B = 16          # the train step's global batch (bench.py's f32 shape)
+MESH_STEPS = 20      # (a)'s steps with and without the mesh
+RANK_STEPS = 3       # (b)'s dp = 2 and tp = 2 steps, against (a)'s first 3
+# the tp = 2 shapes of B3 (CONV_CLASSES with each rank's half of N)
+TP2_CLASSES = [(c[0] + "_tp2", c[1], c[2], c[3] // 2) + tuple(c[4:])
+               for c in CONV_CLASSES]
+
+
+def mesh_hparams(hp):
+    """The LJSpeech preset with dropout 0: the ranks of (b) draw other
+    dropout masks than one process does."""
+    hp = copy.deepcopy(hp)
+    hp.dropout = 0.0
+    return hp
+
+
+def mesh_train(torch, pkg, hp, dev, seed, batch, steps, mesh=None, tp=False,
+               snap=None):
+    """`steps` f32 kernel-mode train steps from the seeded weights on the
+    global `batch` (this rank's rows on a mesh): losses, grad norms, the
+    host ms a step over the steps after the second (synchronised), and the
+    whole parameters (on the host) after `snap` steps and at the end."""
+    from deepvoice3_pytorch_tpu_torch.parallel import mesh as mesh_lib
+    from deepvoice3_pytorch_tpu_torch.training import trainer
+
+    cfg, params = pkg["model_builder"].build_model(hp, pkg["en"].n_vocab,
+                                                   seed=seed, device=dev)
+    if mesh is not None:
+        mesh_lib.shard_params(params, mesh, tp=tp, cfg=cfg)
+        batch = mesh_lib.shard_batch(mesh, batch)
+    opt = trainer.make_optimizer(hp, trainer.make_lr_fn(hp))
+    step = trainer.make_train_step(cfg, trainer.loss_config_from_hparams(hp),
+                                   opt, trainer.trainable_mask(params, cfg),
+                                   mesh=mesh)
+    state = trainer.init_train_state(params, opt)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def whole():
+        p = state.params if mesh is None else mesh_lib.gather_state(
+            mesh, state.params)[0]
+        return {k: v.detach().cpu() for k, v in p.state_dict().items()}
+
+    out = {"loss": [], "grad_norm": []}
+    for i in range(steps):
+        if i == min(2, steps - 1):
+            sync(torch, dev)
+            t = time.time()
+        state, m = step(state, batch, gen)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        if i + 1 == snap:
+            out["snap"] = whole()
+    sync(torch, dev)
+    out["ms"] = (time.time() - t) * 1e3 / (steps - min(2, steps - 1))
+    out["params"] = whole()
+    return out
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def param_diff(a, b):
+    return max(maxabs(a[k], b[k]) for k in b)
+
+
+def train_diff(got, want):
+    """Against want's first steps: loss and grad norm relative, parameters
+    max abs (at got's end against want's snapshot)."""
+    n = len(got["loss"])
+    return {"loss_rel": max(abs(g - w) / abs(w) for g, w in zip(
+                got["loss"], want["loss"][:n])),
+            "grad_norm_rel": max(abs(g - w) / abs(w) for g, w in zip(
+                got["grad_norm"], want["grad_norm"][:n])),
+            "param_max_abs": param_diff(got["params"], want["snap"])}
+
+
+def train_diff_ok(d):
+    """Phase 4's train bars (loss 1e-5 relative at step 1 and 1e-4 after,
+    grad_norm 1e-4, parameters 5e-5)."""
+    return (d["loss_rel"] <= 1e-4 and d["grad_norm_rel"] <= 1e-4
+            and d["param_max_abs"] <= 5e-5)
+
+
+def tts_diff(got, want):
+    """tests/test_multichip.py's dp bars: mel / linear / alignment 3e-4,
+    waveform 5e-2, decoded steps equal."""
+    d = {"steps_equal": [g["num_decoder_steps"] for g in got]
+         == [w["num_decoder_steps"] for w in want]}
+    for k in ("mel", "linear", "alignment", "waveform"):
+        d[k] = max(float(np.abs(np.asarray(g[k]) - np.asarray(w[k])).max())
+                   if np.shape(g[k]) == np.shape(w[k]) else float("inf")
+                   for g, w in zip(got, want))
+    d["ok"] = (d["steps_equal"] and len(got) == len(want) and
+               max(d["mel"], d["linear"], d["alignment"]) <= 3e-4
+               and d["waveform"] <= 5e-2)
+    return d
+
+
+def launch_counts(kernels):
+    return {name: {"launches": k.launches, "by_entry": dict(k.by_entry)}
+            for name, k in kernels.items()}
+
+
+def mesh_kernels():
+    from deepvoice3_pytorch_tpu_torch.dsp import gl_cuda
+    from deepvoice3_pytorch_tpu_torch.ops import conv_cuda
+    from deepvoice3_pytorch_tpu_torch.ops import fused_decode as fd
+
+    return {"fused_decode": fd.KERNEL, "griffin_lim": gl_cuda.KERNEL,
+            "conv_taps": conv_cuda.KERNEL}
+
+
+def counted(kernels, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after: (fn's result, the counts)."""
+    for k in kernels.values():
+        k.reset_counts()
+    res = fn()
+    return res, launch_counts(kernels)
+
+
+def add_counts(total, counts):
+    for name, c in counts.items():
+        t = total.setdefault(name, {"launches": 0, "by_entry": {}})
+        t["launches"] += c["launches"]
+        for e, n in c["by_entry"].items():
+            t["by_entry"][e] = t["by_entry"].get(e, 0) + n
+    return total
+
+
+def check_b2_rows(torch, dev, seed, B, n=400, n_iters=16):
+    """B2's batch call at B rows (a rank's share of tts_batch's 32) against
+    its plain version: phase 6's bars (0.12 of the peak, spectral
+    convergence 1.05x the plain version's) and both host-paced times."""
+    from deepvoice3_pytorch_tpu_torch.dsp import gl_cuda
+    from deepvoice3_pytorch_tpu_torch.dsp import stft as dsp
+
+    win = dsp.lws_hann_window(FFT, HOP)
+    S = tone_mags(torch, dev, seed + 2, B, n)
+    kw = dict(n_iters=n_iters, momentum=0.9, phase_init="spsi",
+              mats=gl_cuda.gl_mats(FFT, win, dev))
+
+    def kernel():
+        return gl_cuda.griffin_lim(S, FFT, HOP, win, **kw)
+
+    def plain():
+        return gl_cuda.griffin_lim_plain(S, FFT, HOP, win, **kw)[:, :n * HOP]
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err, rel, _ = wave_err(got, want, True)
+    row = {"B": B, "err": err, "rel": rel,
+           "sc": spectral_convergence(torch, got, S),
+           "sc_plain": spectral_convergence(torch, want, S),
+           "ms": cuda_ms(kernel, torch), "plain_ms": cuda_ms(plain, torch),
+           "bound_ms": b2_bound_ms(B, n, FFT, HOP, n_iters)[0]}
+    row["ok"] = row["rel"] < 0.12 and row["sc"] <= 1.05 * row["sc_plain"]
+    return row
+
+
+def mesh_world_one(torch, pkg, hp, dev, seed, card, kernels):
+    """(a): a world of one over NCCL, mesh (1, 1): the train step and
+    tts_batch with the mesh against the same calls without it (gloo for a
+    CPU rehearsal)."""
+    import torch.distributed as dist
+
+    from deepvoice3_pytorch_tpu_torch.parallel import mesh as mesh_lib
+
+    hp0 = mesh_hparams(hp)
+    batch = bench_batch(torch, hp0, pkg["en"].n_vocab, MESH_B, dev)
+    mesh = mesh_lib.make_mesh(1, 1, device=dev)
+    rows = {"backend": dist.get_backend()}
+    # in turns, twice: without, with, with, without the mesh
+    ref = mesh_train(torch, pkg, hp0, dev, seed, batch, MESH_STEPS,
+                     snap=RANK_STEPS)
+    mesh_lib.reset_counts()
+    got, launches = counted(kernels, lambda: mesh_train(
+        torch, pkg, hp0, dev, seed, batch, MESH_STEPS, mesh=mesh))
+    coll = dict(mesh_lib.COUNTS)
+    runs = {"no_mesh": [ref], "mesh": [got]}
+    for turn in ("mesh", "no_mesh", "no_mesh", "mesh", "mesh", "no_mesh"):
+        res, more = counted(kernels, lambda: mesh_train(
+            torch, pkg, hp0, dev, seed, batch, MESH_STEPS,
+            mesh=mesh if turn == "mesh" else None))
+        if turn == "mesh":
+            add_counts(launches, more)
+        runs[turn].append(res)
+    ms = {k: [r["ms"] for r in v] for k, v in runs.items()}
+    med = {k: sorted(v)[len(v) // 2 - 1: len(v) // 2 + 1] for k, v in
+           ms.items()}
+    med = {k: sum(v) / 2 for k, v in med.items()}
+    rows["train"] = {
+        "steps": MESH_STEPS, "ms_turns": ms,
+        "median_ms_no_mesh": med["no_mesh"], "median_ms_mesh": med["mesh"],
+        "overhead_ms": med["mesh"] - med["no_mesh"],
+        "loss_equal": all(r["loss"] == ref["loss"] for v in runs.values()
+                          for r in v),
+        "grad_norm_equal": got["grad_norm"] == ref["grad_norm"],
+        "param_max_abs": param_diff(got["params"], ref["params"]),
+        "collectives_per_step": {k: v / MESH_STEPS for k, v in
+                                 coll.items()}}
+    n = int(coll["all_reduce_bytes"] / MESH_STEPS // 4)
+    flat = torch.zeros(n, device=dev)
+    group = mesh_lib.axis_group(mesh, mesh_lib.DATA_AXIS)
+    grads = [torch.zeros_like(v, device=dev) for v in got["params"].values()]
+    rows["train"]["flat_all_reduce"] = {
+        "bytes": 4 * n, "ms": cuda_ms(lambda: mesh_lib.all_reduce(
+            flat, group), torch, reps=20),
+        "with_cat_and_copy_ms": cuda_ms(
+            lambda: mesh_lib.reduce_over_data(mesh, grads), torch, reps=20)}
+    cfg, params = pkg["model_builder"].build_model(hp, pkg["en"].n_vocab,
+                                                   seed=seed, device=dev)
+    ap = pkg["AudioProcessor"](hp)
+    syn = pkg["synthesis"]
+
+    def tts(mesh=None):
+        sync(torch, dev)
+        t = time.time()
+        res = syn.tts_batch(params, cfg, ap, pkg["en"], SENTENCES,
+                            max_decoder_steps=200, mesh=mesh)
+        sync(torch, dev)
+        return res, (time.time() - t) * 1e3
+
+    tts()                                                    # warm-up
+    want, ms_plain = tts()
+    (got_t, ms_mesh), tts_launches = counted(kernels, lambda: tts(mesh))
+    (_, ms_mesh2), more = counted(kernels, lambda: tts(mesh))
+    _, ms_plain2 = tts()
+    rows["tts_batch"] = dict(tts_diff(got_t, want), B=len(SENTENCES),
+                             ms_turns={"no_mesh": [ms_plain, ms_plain2],
+                                       "mesh": [ms_mesh, ms_mesh2]})
+    rows["tts_batch"]["bit_equal"] = all(
+        np.array_equal(g[k], w[k]) for g, w in zip(got_t, want)
+        for k in ("waveform", "mel", "linear", "alignment"))
+    rows["launches"] = add_counts(add_counts(launches, tts_launches), more)
+    # (b)'s reference: each rank's 16 rows in one process, at the whole
+    # batch's text pad length (the kernels' and libraries' tilings follow
+    # the batch size, so rows of a B = 32 call are not bit-equal to a B = 16
+    # call's: the difference is printed, not held)
+    pad = syn._prepare_batch(pkg["en"], SENTENCES, 0.0, 8)[0].shape[1]
+    half = len(SENTENCES) // 2
+    halves = [r for rows_ in (SENTENCES[:half], SENTENCES[half:])
+              for r in syn.tts_batch(params, cfg, ap, pkg["en"], rows_,
+                                     max_decoder_steps=200, pad_to=pad)]
+    dist.destroy_process_group()
+    phase("mesh", "(a) world of one over %s, mesh (1, 1), LJSpeech B=%d "
+          "f32, %d steps (%s): %s" % (rows["backend"], MESH_B, MESH_STEPS,
+                                      card, json.dumps(rows["train"])))
+    phase("mesh", "(a) tts_batch(mesh=) of the %d sentences against "
+          "tts_batch (%s): %s" % (len(SENTENCES), card,
+                                   json.dumps(rows["tts_batch"])))
+    ok = (rows["train"]["param_max_abs"] <= 5e-5
+          and rows["train"]["loss_equal"] and rows["tts_batch"]["ok"])
+    return ok, rows, ref, {"b32": want, "halves": halves}
+
+
+def mesh_rank_main(argv):
+    """A rank of (b): `chip_smoke.py --mesh-rank RANK WORLD WORK`. Joins
+    the gloo group through WORK/init on card 0, runs dp = 2 and tp = 2
+    train steps and dp = 2 tts_batch against (a)'s numbers in WORK/ref.pt,
+    and writes what it found to WORK/rank<RANK>.json."""
+    import torch
+    import torch.distributed as dist
+
+    rank, world, work = int(argv[0]), int(argv[1]), argv[2]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, repo)
+    from deepvoice3_pytorch_tpu_torch import hparams, model_builder
+    from deepvoice3_pytorch_tpu_torch import synthesis
+    from deepvoice3_pytorch_tpu_torch.dsp.audio import AudioProcessor
+    from deepvoice3_pytorch_tpu_torch.frontend import en
+    from deepvoice3_pytorch_tpu_torch.ops import conv_cuda
+    from deepvoice3_pytorch_tpu_torch.ops import core
+    from deepvoice3_pytorch_tpu_torch.parallel import mesh as mesh_lib
+
+    pkg = dict(hparams=hparams, model_builder=model_builder,
+               synthesis=synthesis, AudioProcessor=AudioProcessor, en=en)
+    ref = torch.load(os.path.join(work, "ref.pt"), weights_only=False)
+    dev = torch.device(ref["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        work, "init"), rank=rank, world_size=world)
+    hp, seed = ljspeech_hparams(hparams, repo), ref["seed"]
+    hp.parse(ref["extra_hp"])
+    hp0 = mesh_hparams(hp)
+    kernels = mesh_kernels()
+    out = {"launches": {}}
+    shapes = set()
+    launch_fwd = conv_cuda._launch_fwd
+
+    def record(x, w, b, pl, dil, dgrad=False, tile_n=None):
+        shapes.add((tuple(x.shape), tuple(w.shape), dgrad))
+        return launch_fwd(x, w, b, pl, dil, dgrad, tile_n)
+
+    with core.strict_numerics():
+        batch = bench_batch(torch, hp0, en.n_vocab, ref["B"], dev)
+        for label, shape, tp in (("dp2", (2, 1), False),
+                                 ("tp2", (1, 2), True)):
+            mesh = mesh_lib.make_mesh(*shape, device=dev)
+            if tp:
+                conv_cuda._launch_fwd = record
+            got, counts = counted(kernels, lambda: mesh_train(
+                torch, pkg, hp0, dev, seed, batch, RANK_STEPS, mesh=mesh,
+                tp=tp))
+            conv_cuda._launch_fwd = launch_fwd
+            out[label] = dict(train_diff(got, ref["train"]), ms=got["ms"],
+                              b3_by_route=counts["conv_taps"]["by_entry"])
+            add_counts(out["launches"], counts)
+        out["tp2_fwd_shapes"] = sorted(shapes)
+        mesh = mesh_lib.make_mesh(2, 1, device=dev)
+        cfg, params = model_builder.build_model(hp, en.n_vocab, seed=seed,
+                                                device=dev)
+        t = time.time()
+        res, counts = counted(kernels, lambda: synthesis.tts_batch(
+            params, cfg, AudioProcessor(hp), en, SENTENCES,
+            max_decoder_steps=200, mesh=mesh))
+        out["tts_dp2"] = dict(tts_diff(res, ref["tts"]["halves"]),
+                              ms=(time.time() - t) * 1e3)
+        out["tts_dp2_vs_b32"] = tts_diff(res, ref["tts"]["b32"])
+        add_counts(out["launches"], counts)
+    out["collectives"] = dict(mesh_lib.COUNTS)
+    out["jax_imported"] = any(m == "jax" or m.startswith(
+        "deepvoice3_pytorch_tpu.") for m in sys.modules)
+    with open(os.path.join(work, "rank%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def mesh_two_processes(torch, repo, ref, want_tts, seed, dev, extra_hp,
+                       timeout=600):
+    """(b): two ranks sharing card 0 over gloo (mesh_rank_main). Returns
+    their results; a rank that fails or hangs fails the smoke."""
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="dv3_mesh_")
+    torch.save({"seed": seed, "device": dev.type, "extra_hp": extra_hp,
+                "B": MESH_B,
+                "train": {k: ref[k] for k in ("loss", "grad_norm", "snap")},
+                "tts": want_tts}, os.path.join(work, "ref.pt"))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(repo, "chip_smoke.py"), "--mesh-rank",
+         str(r), "2", work], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        fail("a mesh rank did not finish in %d s" % timeout)
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail("mesh rank %d exited %d:\n%s" % (r, p.returncode,
+                                                   log[-4000:]))
+    out = []
+    for r in range(2):
+        with open(os.path.join(work, "rank%d.json" % r)) as f:
+            out.append(json.load(f))
+    return out
+
+
+def mesh_phase(torch, pkg, hp, dev, seed, card, repo, extra_hp=""):
+    """Phase mesh: (a), (b), B3 at the tp = 2 shapes, B1 and B2 at a rank's
+    rows. Returns (ok, rows, launches on the mesh paths). extra_hp: hparams
+    overrides (a CPU rehearsal's narrow widths; the kernel checks then
+    stay out)."""
+    t0 = time.time()
+    hp = copy.deepcopy(hp)
+    hp.parse(extra_hp)
+    kernels = mesh_kernels()
+    ok, rows, ref, want_tts = mesh_world_one(torch, pkg, hp, dev, seed,
+                                             card, kernels)
+    launches = rows.pop("launches")
+    ranks = mesh_two_processes(torch, repo, ref, want_tts, seed, dev,
+                               extra_hp)
+    label = "two processes on one card: not a scaling figure"
+    for r, res in enumerate(ranks):
+        if res.pop("jax_imported"):
+            fail("mesh rank %d imported jax or the JAX package" % r)
+        add_counts(launches, res.pop("launches"))
+        for key in ("dp2", "tp2"):
+            ok &= train_diff_ok(res[key])
+        ok &= res["tts_dp2"]["ok"]
+        phase("mesh", "(b) rank %d of 2, gloo, card 0 (%s; %s): %s"
+              % (r, label, card, json.dumps(res)))
+    if dev.type != "cuda":
+        return ok, rows, launches
+    b3 = {}
+    for cls in TP2_CLASSES:
+        r = check_b3_class(torch, cls, MESH_B, "float32", dev, seed)
+        b3[cls[0]] = {op: {k: r[op][k] for k in (
+            "err", "ok", "route", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")} for op in ("fwd", "dgrad", "wgrad")}
+        ok &= all(r[op]["ok"] for op in ("fwd", "dgrad", "wgrad"))
+    phase("mesh", "B3 at the tp = 2 shapes (each rank's half of N), f32 "
+          "B=%d, kernel against plain and float64 (%s): %s"
+          % (MESH_B, card, json.dumps(b3)))
+    b1 = check_b1(torch, pkg, hp, dev, seed, B=MESH_B)
+    b2 = check_b2_rows(torch, dev, seed, MESH_B)
+    ok &= b1["ok"] and b2["ok"]
+    phase("mesh", "B1 at a rank's %d rows against its plain version: err "
+          "%.3g (ok %s), %.3f ms, plain %.3f ms; B2 at %d rows: %s (%s)"
+          % (MESH_B, b1["err"], b1["ok"], b1["ms"], b1["plain_ms"], MESH_B,
+             json.dumps(b2), card))
+    rows.update(ranks=ranks, b3_tp2=b3, b1_rows=b1["err"], b2_rows=b2)
+    phase("mesh", "kernel launches on the mesh paths ((a)'s mesh runs and "
+          "both ranks of (b)): %s; the phase took %.1f s"
+          % (json.dumps(launches), time.time() - t0))
+    return ok, rows, launches
+
+
 def main():
     import argparse
 
@@ -4642,11 +5152,22 @@ def main():
     ap.add_argument("--cli-only", action="store_true",
                     help="only build the kernels and run the command "
                          "lines' phases (cli_*, cli_amsgrad among them)")
+    ap.add_argument("--train-turns", default=None, metavar="PARENT_DIR",
+                    help="only time the one-process LJSpeech train step "
+                         "here and in PARENT_DIR, in turns")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="only build the kernels and run phase mesh")
+    ap.add_argument("--mesh-rank", nargs=3, default=None,
+                    metavar=("RANK", "WORLD", "WORK"),
+                    help="run as a rank of phase mesh's two processes")
     ap.add_argument("--dsp-only", action="store_true",
                     help="only build the kernels and run the DSP and "
                          "preprocessing phases (B2_center, B2_shapes, "
                          "dsp_modes, stream_general_hop, cli_preprocess)")
     args = ap.parse_args()
+    if args.mesh_rank:
+        mesh_rank_main(args.mesh_rank)
+        return
     t_smoke = time.time()
     json_out = args.json_out
     if not torch.cuda.is_available():
@@ -4698,6 +5219,9 @@ def main():
         return
     if args.b2_turns:
         b2_turns(os.path.abspath(args.b2_turns), card, json_out)
+        return
+    if args.train_turns:
+        train_turns(os.path.abspath(args.train_turns), card)
         return
 
     t0 = time.time()
@@ -4756,6 +5280,20 @@ def main():
             phase("total", "the smoke took %.1f s" % (time.time() - t_smoke))
             if not dsp_ok:
                 fail("a DSP or preprocessing phase missed its bar")
+            return
+        if args.mesh_only:
+            mesh_ok, mesh_rows, mesh_l = mesh_phase(torch, pkg, hp, dev,
+                                                    seed, card, repo)
+            if json_out:
+                os.makedirs(os.path.dirname(os.path.abspath(json_out)),
+                            exist_ok=True)
+                with open(json_out, "w") as f:
+                    json.dump({"card": card, "mesh": mesh_rows,
+                               "mesh_launches": mesh_l}, f, indent=1,
+                              default=str)
+            phase("total", "the smoke took %.1f s" % (time.time() - t_smoke))
+            if not mesh_ok:
+                fail("phase mesh missed a bar")
             return
         if args.cli_only:
             cli_ok, cli_rows, cli_l = cli_phases(torch, pkg, repo, card, dev)
@@ -5033,6 +5571,15 @@ def main():
         if not dsp_ok or dsp["griffin_lim_center"] <= 0 or \
                 len(dsp["shapes"]) != len(B2_FRAMINGS):
             fail("a DSP or preprocessing phase missed its bar")
+        mesh_ok, mesh_rows, mesh_l = mesh_phase(torch, pkg, hp, dev, seed,
+                                                card, repo)
+        mesh_b3 = mesh_l["conv_taps"]["by_entry"]
+        if not mesh_ok:
+            fail("phase mesh missed a bar")
+        if min(mesh_l[k]["launches"] for k in mesh_l) <= 0 or any(
+                k.endswith("_simple") for k in mesh_b3):
+            fail("a kernel of the mesh paths was not launched, or B3 took "
+                 "its ragged route: %s" % json.dumps(mesh_l))
         if json_out:
             os.makedirs(os.path.dirname(os.path.abspath(json_out)),
                         exist_ok=True)
@@ -5047,7 +5594,8 @@ def main():
                            "b1_serve": b1s, "cb": cb_rows,
                            "presets": preset_rows, "cli": cli_rows,
                            "cli_launches": cli_l, "dsp": dsp_rows,
-                           "dsp_launches": dsp_l}, f, indent=1,
+                           "dsp_launches": dsp_l, "mesh": mesh_rows,
+                           "mesh_launches": mesh_l}, f, indent=1,
                           default=str)
 
     b1_bound = b1_rows["B1"]["bound"]
@@ -5077,7 +5625,8 @@ def main():
          "replaces": "deepvoice3_pytorch_tpu/ops/fused_decode.py:198",
          "launches": sum(b1_paths.values()) + sum(b1_slots.values())
          + cli["fused_decode"] + cli["fused_decode_slots"]
-         + dsp["fused_decode"] + dsp["fused_decode_slots"],
+         + dsp["fused_decode"] + dsp["fused_decode_slots"]
+         + mesh_l["fused_decode"]["launches"],
          "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain_ms,
          "bound_ms": b1_bound[0], "bound_by": b1_bound[1],
          "library_ms": None, "timing": "host-paced",
@@ -5096,7 +5645,8 @@ def main():
          "source": "deepvoice3_pytorch_tpu_torch/csrc/griffin_lim.cu",
          "replaces": "deepvoice3_pytorch_tpu/dsp/gl_pallas.py:146",
          "launches": launches["griffin_lim"] + cli["griffin_lim"]
-         + dsp["griffin_lim"],
+         + dsp["griffin_lim"]
+         + mesh_l["griffin_lim"]["by_entry"].get("batch", 0),
          "max_abs_err": b2["err"],
          "ms": b2["cuda_ms"], "plain_ms": b2["plain_ms"],
          "bound_ms": b2["bound"][0], "bound_by": b2["bound"][1],
@@ -5133,7 +5683,8 @@ def main():
          "source": "deepvoice3_pytorch_tpu_torch/csrc/conv_taps.cu",
          "replaces": "deepvoice3_pytorch_tpu/ops/conv_pallas.py:%d" % line,
          "launches": b3_launches.get("%s_%s" % (entry, route), 0)
-         + cli["conv_taps"].get("%s_%s" % (entry, route), 0),
+         + cli["conv_taps"].get("%s_%s" % (entry, route), 0)
+         + mesh_b3.get("%s_%s" % (entry, route), 0),
          "max_abs_err": step[key]["err"], "ms": step[key]["ms"],
          "plain_ms": step[key]["plain_ms"],
          "bound_ms": step[key]["bound_ms"],

@@ -1,10 +1,13 @@
 # coding: utf-8
 """What the command lines share: hparams from a preset and overrides, the
-device, and the kernels' launch counts."""
+device, the process group of a torchrun launch, and the kernels' launch
+counts."""
 
 import json
+import os
 
 import torch
+import torch.distributed as dist
 
 from ..hparams import default_hparams
 
@@ -38,6 +41,38 @@ def pick_device(name):
         raise SystemExit("no CUDA device (torch.cuda.is_available() is "
                          "false); pass --device cpu to run on the CPU")
     return dev
+
+
+def init_distributed(device_name):
+    """Join the process group that torchrun (python -m
+    torch.distributed.run) describes in the environment: RANK, WORLD_SIZE,
+    LOCAL_RANK and MASTER_ADDR / MASTER_PORT. On the card each process
+    takes card LOCAL_RANK and the group is NCCL's; on the CPU gloo's.
+    Returns this process's device, or None without that environment (one
+    process, as before). A group that fails to form raises."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return None
+    device = pick_device(device_name)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method="env://")
+    return device
+
+
+def make_run_mesh(device, n_model=1):
+    """The run's mesh over every rank (a world of one without torchrun,
+    where n_model > 1 raises the JAX message), printed by rank 0."""
+    from ..parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh(n_model=n_model, device=device)
+    if mesh_lib.is_main(mesh):
+        print("Mesh: data=%d, model=%d over %d process(es), %s" % (
+            mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS),
+            mesh_lib.axis_size(mesh, mesh_lib.MODEL_AXIS),
+            dist.get_world_size(), dist.get_backend()), flush=True)
+    return mesh
 
 
 def _kernels():

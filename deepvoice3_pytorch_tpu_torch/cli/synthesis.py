@@ -13,9 +13,14 @@ with --stream, tts_stream, which prints each batch's first-chunk latency.
 The checkpoint is read by training/checkpoint.py: the port's files and the
 JAX package's alike.
 
-The root script's --fused and --data-parallel are not carried over: the
-port always decodes with kernel B1 on one card (or its plain version with
---device cpu).
+--data-parallel splits each batch's sentences over the ranks of a torchrun
+launch (python -m torch.distributed.run --nproc-per-node N -m
+deepvoice3_pytorch_tpu_torch.cli.synthesis --data-parallel ...; one card a
+rank, or gloo with --device cpu) through tts_batch(mesh=); rank 0 alone
+writes the files. Without torchrun it is a mesh of one process, as the root
+script's on one device. The port always decodes with kernel B1 (or its plain
+version with --device cpu), so the root script's --fused has no
+counterpart; --stream does not compose with --data-parallel, as there.
 """
 
 import argparse
@@ -32,6 +37,7 @@ from .. import streaming
 from ..dsp.audio import AudioProcessor
 from ..hparams import hparams_debug_string
 from ..model_builder import build_model
+from ..parallel import mesh as mesh_lib
 from ..synthesis import tts_batch
 from ..training import checkpoint as ckpt
 from . import common
@@ -93,6 +99,9 @@ def build_parser():
                    help="synthesize with the streaming pipeline "
                         "(streaming.tts_stream) and print each batch's "
                         "first-chunk latency")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="split each batch over the ranks of a torchrun "
+                        "launch (one process without torchrun)")
     p.add_argument("--output-html", action="store_true")
     p.add_argument("--warmup", action="store_true",
                    help="synthesize the first batch once, in the run's "
@@ -108,9 +117,24 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    device = common.pick_device(args.device)
+    if args.stream and args.data_parallel:
+        raise SystemExit("--stream does not compose with --data-parallel")
+    device = common.init_distributed(args.device)
+    distributed = device is not None
+    device = device or common.pick_device(args.device)
+    try:
+        mesh = common.make_run_mesh(device) if args.data_parallel else None
+        _synthesize(args, device, mesh)
+    finally:
+        if distributed:
+            torch.distributed.destroy_process_group()
+
+
+def _synthesize(args, device, mesh):
+    main_rank = mesh_lib.is_main(mesh)
     hp = common.load_hparams(args.preset, args.hparams)
-    print(hparams_debug_string(hp))
+    if main_rank:
+        print(hparams_debug_string(hp))
 
     fe = frontend_pkg.get_frontend(hp.frontend)
     cfg, params = build_model(hp, fe.n_vocab, device=device)
@@ -123,7 +147,8 @@ def main(argv=None):
         checkpoint_name = splitext(basename(args.checkpoint))[0]
 
     ap = AudioProcessor(hp)
-    os.makedirs(args.dst_dir, exist_ok=True)
+    if main_rank:
+        os.makedirs(args.dst_dir, exist_ok=True)
     with open(args.text_list_file, "rb") as f:
         lines = [l.decode("utf-8").strip() for l in f if l.strip()]
 
@@ -136,7 +161,7 @@ def main(argv=None):
                          args.max_decoder_steps)
         else:
             tts_batch(params, cfg, ap, fe, texts, speaker_ids=spk,
-                      max_decoder_steps=args.max_decoder_steps)
+                      max_decoder_steps=args.max_decoder_steps, mesh=mesh)
         common.reset_launches()
     mpl = common.pyplot()
     summary = {"device": str(device), "batches": []}
@@ -155,9 +180,12 @@ def main(argv=None):
             results = tts_batch(params, cfg, ap, fe, texts,
                                 p=args.replace_pronunciation_prob,
                                 speaker_ids=spk,
-                                max_decoder_steps=args.max_decoder_steps)
+                                max_decoder_steps=args.max_decoder_steps,
+                                mesh=mesh)
         wall_ms = (time.perf_counter() - t0) * 1e3   # results are on the
         # host: the device's work is done
+        if not main_rank:          # every rank has every result
+            continue
         audio_s = sum(len(r["waveform"]) for r in results) / ap.sample_rate
         summary["batches"].append({
             "n": len(texts), "wall_ms": wall_ms, "audio_s": audio_s,
@@ -189,6 +217,8 @@ def main(argv=None):
                         text.replace("<", "&lt;"), basename(dst_wav_path),
                         basename(dst_alignment_path)))
 
+    if not main_rank:
+        return
     if args.output_html and html_rows:
         html = ("<!doctype html>\n<meta charset=\"utf-8\">\n"
                 "<title>{0}</title>\n<h1>{0}</h1>\n{1}\n").format(

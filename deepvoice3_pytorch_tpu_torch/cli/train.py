@@ -5,10 +5,22 @@
         --preset=presets/deepvoice3_ljspeech.json --data-root=<dir> \\
         --checkpoint-dir=checkpoints [--device cpu]
 
-It takes every flag of the root script but --mesh-model (one card), and
-adds --device (default cuda), --seed and --conv-mode (default kernel: the
-step's convolutions run kernel B3, its plain version on the CPU). Any of the
-three builders trains, as the preset names.
+It takes every flag of the root script, and adds --device (default cuda),
+--seed and --conv-mode (default kernel: the step's convolutions run kernel
+B3, its plain version on the CPU). Any of the three builders trains, as the
+preset names.
+
+Launched by torchrun (python -m torch.distributed.run --nproc-per-node N
+-m deepvoice3_pytorch_tpu_torch.cli.train ...), the N processes form a
+("data", "model") mesh (parallel/mesh.py), one card each (card LOCAL_RANK,
+NCCL; gloo with --device cpu): --mesh-model M ranks slice the conv and
+linear layers' out channels (tensor parallelism), the rest split every
+batch's rows (data parallelism). Every rank builds the same global batch
+from the same seeded sampler and keeps its rows, so the numbers are the
+one-process run's up to summation order; dropout draws from (seed, step,
+data rank). Rank 0 alone prints, writes checkpoints (the tensor-parallel
+leaves gathered first), TensorBoard records, eval audio and --summary-json.
+Without torchrun's environment the run is one process, as before.
 
 Resuming (--checkpoint) continues the run that wrote the file: the sampler
 is replayed to the saved epoch and the batches of that epoch already taken
@@ -45,6 +57,7 @@ from ..builder import model_forward
 from ..dsp.audio import AudioProcessor
 from ..hparams import hparams_debug_string
 from ..model_builder import build_model
+from ..parallel import mesh as mesh_lib
 from ..synthesis import tts_batch
 from ..training import checkpoint as ckpt
 from ..training import dataset, trainer
@@ -233,10 +246,14 @@ def build_parser():
                         "library: F.conv1d [default: kernel]")
     p.add_argument("--summary-json", type=str, default=None,
                    help="write the run's numbers to this JSON file")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="ranks on the 'model' mesh axis: out-channel tensor "
+                        "parallelism over those ranks; the rest of the "
+                        "torchrun ranks form the data-parallel axis")
     return p
 
 
-def _restore(args, params, opt_state):
+def _restore(args, params, opt_state, say=print):
     """Apply --checkpoint (exact resume), the halves, --restore-parts and
     --load-embedding. Returns (opt_state or None, step, epoch, load ms)."""
     global_step, global_epoch, load_ms = 0, 0, None
@@ -247,7 +264,7 @@ def _restore(args, params, opt_state):
             reset_optimizer=args.reset_optimizer)
         _sync(next(params.parameters()).device)
         load_ms = (time.perf_counter() - t) * 1e3
-        print("Loaded %s (step %d, epoch %d) in %.1f ms"
+        say("Loaded %s (step %d, epoch %d) in %.1f ms"
               % (args.checkpoint, global_step, global_epoch, load_ms))
     else:
         opt_state = None
@@ -262,9 +279,23 @@ def _restore(args, params, opt_state):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    device = common.pick_device(args.device)
+    device = common.init_distributed(args.device)
+    distributed = device is not None
+    device = device or common.pick_device(args.device)
+    mesh = common.make_run_mesh(device, args.mesh_model) \
+        if distributed or args.mesh_model > 1 else None
+    say = print if mesh_lib.is_main(mesh) else (lambda *a, **k: None)
+    try:
+        _train(args, device, mesh, say)
+    finally:
+        if distributed:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device, mesh, say):
+    main_rank = mesh_lib.is_main(mesh)
     hp = common.load_hparams(args.preset, args.hparams)
-    print(hparams_debug_string(hp))
+    say(hparams_debug_string(hp))
 
     train_seq2seq = not args.train_postnet_only
     train_postnet = not args.train_seq2seq_only
@@ -300,6 +331,11 @@ def main(argv=None):
     if n_batches == 0:
         raise SystemExit("%d utterances make no batch of %d"
                          % (len(ds), hp.batch_size))
+    n_data = 1 if mesh is None else mesh_lib.axis_size(mesh,
+                                                       mesh_lib.DATA_AXIS)
+    if hp.batch_size % n_data:
+        raise SystemExit("batch_size %d does not divide over %d data ranks"
+                         % (hp.batch_size, n_data))
 
     cfg, params = build_model(hp, fe.n_vocab, seed=args.seed, device=device)
     lc = trainer.loss_config_from_hparams(hp)._replace(
@@ -310,26 +346,31 @@ def main(argv=None):
                                   train_postnet=train_postnet)
     state = trainer.init_train_state(params, optimizer)
     opt_state, global_step, global_epoch, load_ms = _restore(
-        args, params, state.opt_state)
+        args, params, state.opt_state, say)
     if opt_state is None:                # a fresh (or reset) optimizer
         opt_state = state.opt_state
+    if mesh is not None:   # the whole tree restored, then placed
+        tp = mesh_lib.axis_size(mesh, mesh_lib.MODEL_AXIS) > 1
+        mesh_lib.shard_params(params, mesh, tp=tp, cfg=cfg)
+        opt_state = mesh_lib.shard_moments(opt_state, params.tp_layout)
     state = trainer.TrainState(params, opt_state, global_step)
     step_fn = trainer.make_train_step(cfg, lc, optimizer, mask,
                                       compute_dtype=hp.compute_dtype,
-                                      conv_mode=args.conv_mode)
+                                      conv_mode=args.conv_mode, mesh=mesh)
 
     writer = None
     try:
         from tensorboardX import SummaryWriter
     except ImportError:
         SummaryWriter = None
-    if SummaryWriter is not None:
+    if SummaryWriter is not None and main_rank:
         log_path = args.log_event_path or "log/run-test%s" % (
             datetime.now().strftime("%Y%m%d%H%M%S"))
         writer = SummaryWriter(log_path)
         print("TensorBoard event log path: %s" % log_path)
 
-    os.makedirs(args.checkpoint_dir, exist_ok=True)
+    if main_rank:
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
     gen = torch.Generator(device=device)
     step_timer = profiling.StepTimer()
     tracer = profiling.TraceWindow(args.profile_dir, args.profile_start,
@@ -339,10 +380,20 @@ def main(argv=None):
                "eval_ms": [], "load_ms": load_ms, "files": {}}
     steady = {"t": None, "steps": 0, "excluded_s": 0.0}
 
+    def whole_state():
+        """The state with the tensor-parallel leaves gathered (every rank
+        takes part)."""
+        if mesh is None:
+            return state.params, state.opt_state
+        return mesh_lib.gather_state(mesh, state.params, state.opt_state)
+
     def save(step, batch, async_save):
+        params_w, opt_w = whole_state()
+        if not main_rank:
+            return
         with torch.no_grad():
             outputs = model_forward(
-                state.params, cfg, batch["x"], batch["mel"],
+                params_w, cfg, batch["x"], batch["mel"],
                 speaker_ids=batch.get("speaker_ids"),
                 text_positions=batch["text_positions"],
                 frame_positions=batch["frame_positions"],
@@ -351,7 +402,7 @@ def main(argv=None):
         _sync(device)
         t_ck = time.perf_counter()
         path = ckpt.save_checkpoint(
-            args.checkpoint_dir, state.params, state.opt_state, step,
+            args.checkpoint_dir, params_w, opt_w, step,
             global_epoch, train_seq2seq=train_seq2seq,
             train_postnet=train_postnet,
             save_optimizer_state=hp.save_optimizer_state,
@@ -364,16 +415,16 @@ def main(argv=None):
     def fetch_losses(running):
         summary["losses"] += [float(v) for v in running]
 
-    print("Starting training (%d utterances, batch %d) on %s"
-          % (len(ds), hp.batch_size, device))
+    say("Starting training (%d utterances, batch %d) on %s"
+        % (len(ds), hp.batch_size, device))
     # replay the sampler to the saved epoch and skip the batches of it that
     # the saved run took (a save at an epoch's last step precedes the
     # epoch's count)
     extra, skip = divmod(global_step - global_epoch * n_batches, n_batches)
     if extra < 0:
-        print("note: step %d comes before epoch %d of %d batches; the "
-              "epoch starts from its first batch"
-              % (global_step, global_epoch, n_batches))
+        say("note: step %d comes before epoch %d of %d batches; the "
+            "epoch starts from its first batch"
+            % (global_step, global_epoch, n_batches))
         extra, skip = 0, 0
     global_epoch += extra
     for _ in range(global_epoch):
@@ -386,10 +437,13 @@ def main(argv=None):
             t_epoch = time.time()
             random.seed(args.seed * 1000003 + global_epoch)
             host = itertools.islice(iter(loader), skip, None)
+            if mesh is not None:     # the same global batch on every rank
+                host = (mesh_lib.shard_batch(mesh, b) for b in host)
             skip = 0
             for batch in device_batches(host, device):
                 tracer.maybe_start(global_step)
-                gen.manual_seed(args.seed * 1000003 + global_step)
+                gen.manual_seed(mesh_lib.dropout_seed(
+                    args.seed * 1000003 + global_step, mesh))
                 state, metrics = step_fn(state, batch, gen)
                 global_step += 1
                 step_timer.tick()
@@ -402,7 +456,7 @@ def main(argv=None):
                 elif steady["t"] is not None:
                     steady["steps"] += 1
 
-                if global_step % 50 == 0 or global_step < 5:
+                if main_rank and (global_step % 50 == 0 or global_step < 5):
                     m = {k: float(v) for k, v in metrics.items()}
                     perf = step_timer.report(writer, global_step)
                     print("step %d | loss %.4f | %s%s"
@@ -423,9 +477,11 @@ def main(argv=None):
                     save(global_step, batch, args.async_checkpoint)
                 if global_step % hp.eval_interval == 0:
                     t_eval = time.perf_counter()
-                    eval_model(global_step, writer, state.params, cfg, ap,
-                               fe, args.checkpoint_dir,
-                               hp.max_decoder_steps)
+                    params_w, _ = whole_state()
+                    if main_rank:   # kernel B1 on the gathered parameters
+                        eval_model(global_step, writer, params_w, cfg, ap,
+                                   fe, args.checkpoint_dir,
+                                   hp.max_decoder_steps)
                     _sync(device)
                     summary["eval_ms"].append(
                         round((time.perf_counter() - t_eval) * 1e3, 3))
@@ -437,14 +493,14 @@ def main(argv=None):
             fetch_losses(running)
             epoch_loss = float(np.mean([float(x) for x in running])) \
                 if running else float("nan")
-            print("epoch %d done in %.1fs | avg loss %.4f"
-                  % (global_epoch, time.time() - t_epoch, epoch_loss))
+            say("epoch %d done in %.1fs | avg loss %.4f"
+                % (global_epoch, time.time() - t_epoch, epoch_loss))
             if writer is not None and running:
                 writer.add_scalar("loss (per epoch)", epoch_loss,
                                   global_epoch)
     except KeyboardInterrupt:
         fetch_losses(running)
-        print("Interrupted -- saving checkpoint")
+        say("Interrupted -- saving checkpoint")
     _sync(device)
     if steady["t"] is not None and steady["steps"]:
         summary["steady_steps_per_s"] = steady["steps"] / (
@@ -452,8 +508,11 @@ def main(argv=None):
     tracer.close()
     ckpt.wait_pending_saves()
     t = time.perf_counter()
+    params_w, opt_w = whole_state()
+    if not main_rank:
+        return
     path = ckpt.save_checkpoint(
-        args.checkpoint_dir, state.params, state.opt_state, global_step,
+        args.checkpoint_dir, params_w, opt_w, global_step,
         global_epoch, train_seq2seq=train_seq2seq,
         train_postnet=train_postnet,
         save_optimizer_state=hp.save_optimizer_state)

@@ -106,7 +106,11 @@ def default_hparams():
         max_decoder_steps=500,      # static decode length bound
         length_bucket_step=32,      # pad text lengths to multiples
         frame_bucket_step=64,       # pad decoder lengths to multiples
-        mesh_data_axis=-1,          # JAX mesh knob; unused by the port
+        mesh_data_axis=-1,          # -1: every rank not on the model
+                                    # axis is on the data axis; neither
+                                    # package reads it: parallel/mesh.py's
+                                    # make_mesh takes the ranks and
+                                    # --mesh-model, as JAX's train.py
         compute_dtype="float32",
         stft_mode="lws",            # "lws": causal framing, PR-normalized
                                     # sqrt-Hann; "center": librosa-style

@@ -19,15 +19,22 @@ Convolutions with kw > 1 lower one of two ways, chosen per thread by the
 `conv_lowering`): "library" (the default, as the JAX default "xla") calls
 `F.conv1d`; "kernel" (the counterpart of "pallas") calls the tap-accumulating
 kernel B3 through `ops/conv_cuda.conv1d_taps`, which the train step uses.
+
+Inside a `tensor_parallel` block, `conv1d_apply` and `linear_apply` on a
+layer that tensor parallelism sliced (parallel/mesh.py) run column-parallel:
+the rank computes its block of out channels and all-gathers the blocks on
+the channel axis, before a GLU or highway gate splits the channels.
 """
 
 import contextvars
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from . import conv_cuda
+from ..parallel import mesh as mesh_lib
 
 
 # ---------------------------------------------------------------------------
@@ -108,7 +115,7 @@ def conv_transpose1d_init(generator, in_channels, out_channels, kernel_size,
 
 
 def linear_apply(p, x):
-    return x @ linear_weight(p) + p["b"]
+    return _column_parallel(p, x, lambda x: x @ linear_weight(p) + p["b"])
 
 
 def embedding_apply(p, ids):
@@ -143,6 +150,10 @@ def conv1d_apply(p, x, *, dilation=1, causal=False):
 
     causal: left-pad (kw-1)*dilation; otherwise symmetric
     (kw-1)//2*dilation on each side (odd kernels)."""
+    return _column_parallel(p, x, lambda x: _conv1d(p, x, dilation, causal))
+
+
+def _conv1d(p, x, dilation, causal):
     w = conv1d_weight(p)
     kw = w.shape[0]
     if kw == 1:
@@ -156,6 +167,75 @@ def conv1d_apply(p, x, *, dilation=1, causal=False):
     xp = F.pad(x.transpose(1, 2), pad)                   # (B, C, T + pads)
     y = F.conv1d(xp, w.permute(2, 1, 0), dilation=dilation)
     return y.transpose(1, 2) + p["b"]
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: Megatron's column-parallel pair
+# ---------------------------------------------------------------------------
+
+
+_tp = contextvars.ContextVar("dv3_torch_tensor_parallel", default=None)
+
+
+class tensor_parallel:
+    """`with tensor_parallel(group, sharded):` runs every conv1d_apply and
+    linear_apply inside the block whose `v` is one of the tensors in
+    `sharded` (this rank's blocks of the tp-sliced layers, as given to the
+    forward) column-parallel over `group`, the mesh's "model" group. Per
+    thread and exception-safe, as conv_mode. The collectives sit in the
+    autograd graph, so the backward that follows the block runs them too."""
+
+    def __init__(self, group, sharded):
+        self.group = group
+        self.ids = frozenset(id(t) for t in sharded)
+
+    def __enter__(self):
+        self._token = _tp.set(self)
+        return self
+
+    def __exit__(self, *exc):
+        _tp.reset(self._token)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Forward: identity. Backward: dx summed over the model ranks, since a
+    rank's layer only sees its own out channels' share of dx."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dx):
+        return mesh_lib.all_reduce(dx.contiguous().clone(), ctx.group), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """Forward: the ranks' out-channel blocks all-gathered on the last axis.
+    Backward: this rank's block of dy. (The upstream gradient is the same on
+    every model rank, so it is sliced, not summed: torch.distributed.nn's
+    all_gather sums it and would scale it by the group's size.)"""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        ctx.block = (dist.get_rank(group), y.shape[-1])
+        return mesh_lib.all_gather(y, group, dim=-1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        rank, n = ctx.block
+        return dy[..., rank * n:(rank + 1) * n].contiguous(), None
+
+
+def _column_parallel(p, x, fn):
+    """fn(x) for a replicated layer; for a sliced one (inside
+    tensor_parallel), fn on this rank's block and the blocks gathered."""
+    tp = _tp.get()
+    if tp is None or id(p["v"]) not in tp.ids:
+        return fn(x)
+    y = fn(_CopyToModel.apply(x, tp.group))
+    return _GatherFromModel.apply(y, tp.group)
 
 
 def conv_transpose1d_apply(p, x, *, stride=2):

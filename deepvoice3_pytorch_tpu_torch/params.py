@@ -37,6 +37,40 @@ class ParamTree(nn.Module):
         return cls(nest(state_dict))
 
 
+def _parent(params, name):
+    node = params
+    parts = name.split(".")
+    for part in parts[:-1]:
+        node = node[int(part)] if isinstance(node, nn.ModuleList) \
+            else node[part]
+    return node, parts[-1]
+
+
+def replace_leaves(params, new):
+    """Swap leaves of `params` in place: dotted name -> tensor, each made a
+    Parameter with the old one's requires_grad (tensor parallelism's slices
+    of a full tree, parallel/mesh.py)."""
+    for name, t in new.items():
+        node, leaf = _parent(params, name)
+        old = node._parameters[leaf]
+        setattr(node, leaf, nn.Parameter(t, requires_grad=old.requires_grad))
+
+
+def rebuilt(params, fn, prefix=""):
+    """A new ParamTree of `params`' structure (empty entries kept) whose leaf
+    `name` is fn(name, leaf)."""
+    def walk(node, prefix):
+        if isinstance(node, nn.ModuleList):
+            return [walk(m, "%s%d." % (prefix, i))
+                    for i, m in enumerate(node)]
+        out = {k: fn(prefix + k, v) for k, v in node._parameters.items()}
+        for k, m in node._modules.items():
+            out[k] = walk(m, prefix + k + ".")
+        return out
+
+    return ParamTree(walk(params, prefix))
+
+
 def nest(flat):
     """Dotted key -> tensor mapping to the nested dict/list tree, with the
     tensors themselves as leaves (so a tree of cast or differentiable

@@ -8,13 +8,18 @@
      decoded length, bucketed,
   3. Griffin-Lim (dsp/gl_cuda.py) and inverse pre-emphasis on the
      correspondingly shorter linear spectrogram.
+
+With `mesh=` (parallel/mesh.py) the batch is data-parallel over the mesh's
+"data" ranks: each runs the three stages on its rows.
 """
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .builder import model_decode, model_postnet
 from .dsp.audio import AudioProcessor
+from .parallel import mesh as mesh_lib
 
 # The post-decode trim keeps the batch's longest decoded length plus slack
 # for the converter's receptive field, rounded up to a bucket, so every real
@@ -61,18 +66,74 @@ def speaker_id_tensor(cfg, speaker_ids, device):
     return torch.as_tensor(ids, device=device)
 
 
+def _shard_texts(mesh, arrays, device):
+    """Data-parallel batch preparation: the global batch's int arrays (the
+    same pad length on every rank) with rows padded to a multiple of the
+    "data" axis by repeating row 0, agreed from the mesh's first rank (a
+    pronunciation mix with p > 0 draws on each rank), then this rank's
+    rows."""
+    n_data = mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS)
+    arrays = [a.reshape(len(a), -1) for a in arrays]
+    pad = (-len(arrays[0])) % n_data
+    packed = np.concatenate(arrays, axis=1)
+    packed = np.concatenate([packed, np.repeat(packed[:1], pad, axis=0)])
+    t = mesh_lib.broadcast_from_first(mesh, torch.from_numpy(packed).to(
+        device))
+    t = t[mesh_lib.shard_rows(len(t), n_data, mesh_lib.axis_rank(
+        mesh, mesh_lib.DATA_AXIS))]
+    out, col = [], 0
+    for a in arrays:
+        out.append(t[:, col:col + a.shape[1]].contiguous())
+        col += a.shape[1]
+    return out
+
+
+def _gather_rows(mesh, tensors, lengths):
+    """Every rank's rows of each (B_local, T, ...) tensor, zero-padded on
+    axis 1 to `lengths[i]` and gathered over "data" in rank order."""
+    group = mesh_lib.axis_group(mesh, mesh_lib.DATA_AXIS)
+    out = []
+    for t, n in zip(tensors, lengths):
+        t = t[:, :n]
+        pad = [0, 0] * (t.dim() - 2) + [0, n - t.shape[1]]
+        out.append(mesh_lib.all_gather(F.pad(t, pad), group))
+    return out
+
+
 @torch.inference_mode()
 def tts_batch(params, cfg, ap: AudioProcessor, frontend_mod, texts, *,
               p=0.0, speaker_ids=None, max_decoder_steps=500,
-              early_exit=True, pad_to=8):
+              early_exit=True, pad_to=8, mesh=None):
     """Batched text -> waveform. Returns a list of per-utterance dicts with
     waveform / mel / linear / alignment (numpy, trimmed to the decoded
     lengths) and num_decoder_steps. Runs where `params` live.
-    speaker_ids: one id per text for a multi-speaker model, else None."""
+    speaker_ids: one id per text for a multi-speaker model, else None.
+
+    mesh: data-parallel synthesis over the mesh's "data" ranks, the
+    parameters replicated (whole on every rank). Every rank prepares the
+    global batch, so the text pad length is global; the rows are padded to
+    a multiple of the axis by repeating row 0, and each rank runs the
+    encoder, kernel B1's decode, the converter and kernel B2 on its rows.
+    The converter's trim is taken from the longest decoded length of the
+    whole batch (all-reduced), as one process takes it, so every real frame
+    sees the same converter context. Every rank returns the whole list in
+    input order, the pad rows dropped, as the JAX package's
+    `tts_batch(mesh=)` does. Held to the one-process call and to JAX's by
+    tests/test_torch_mesh.py::test_dp_tts_batch_matches_one_process_and_jax.
+    """
     device = _param_device(params)
-    x, pos, lengths = (torch.from_numpy(a).to(device)
-                       for a in _prepare_batch(frontend_mod, texts, p, pad_to))
-    spk = speaker_id_tensor(cfg, speaker_ids, device)
+    host = _prepare_batch(frontend_mod, texts, p, pad_to)
+    ids = None if speaker_ids is None else np.asarray(
+        speaker_ids, np.int64).reshape(-1)
+    if mesh is not None:
+        arrays = _shard_texts(mesh, list(host) + (
+            [] if ids is None else [ids]), device)
+        x, pos, lengths = arrays[0], arrays[1], arrays[2][:, 0]
+        if ids is not None:
+            ids = arrays[3][:, 0].cpu().numpy()
+    else:
+        x, pos, lengths = (torch.from_numpy(a).to(device) for a in host)
+    spk = speaker_id_tensor(cfg, ids, device)
 
     mel, pin, align, done, dec_lengths = model_decode(
         params, cfg, x, pos, speaker_ids=spk, input_lengths=lengths,
@@ -80,17 +141,34 @@ def tts_batch(params, cfg, ap: AudioProcessor, frontend_mod, texts, *,
 
     # trim the postnet input to the batch's longest decoded length before
     # the converter and vocoder: their cost follows the decoded audio
-    dec_lengths = dec_lengths.cpu().numpy()
+    n_dec_max = dec_lengths.max()
+    if mesh is not None:
+        n_dec_max = mesh_lib.all_reduce(
+            n_dec_max.reshape(1), mesh_lib.axis_group(
+                mesh, mesh_lib.DATA_AXIS), op=torch.distributed.ReduceOp.MAX)
+    n_dec_max = int(n_dec_max.max())
     n_bucket = min(max_decoder_steps,
-                   _round_up(int(dec_lengths.max()) + SLACK_DEC_STEPS,
-                             BUCKET_DEC_STEPS))
+                   _round_up(n_dec_max + SLACK_DEC_STEPS, BUCKET_DEC_STEPS))
     linear = model_postnet(params, cfg, pin[:, :n_bucket * cfg.r],
                            speaker_ids=spk)
-    wav_batch = ap.inv_spectrogram_device(linear).cpu().numpy()
-    mel = ap._denormalize(mel).cpu().numpy()
-    linear = ap._denormalize(linear).cpu().numpy()
+    wav = ap.inv_spectrogram_device(linear)
+    mel = ap._denormalize(mel)
+    linear = ap._denormalize(linear)
+    if mesh is not None:
+        time_up = getattr(cfg.converter, "time_upsampling", 1)
+        n_mel = n_dec_max * cfg.r
+        wav, mel, linear, align, dec_lengths, lengths = _gather_rows(
+            mesh, [wav[:, :, None], mel, linear, align, dec_lengths[:, None],
+                   lengths[:, None]],
+            [wav.shape[1], n_mel, n_mel * time_up, n_dec_max, 1, 1])
+        wav, dec_lengths, lengths = wav[..., 0], dec_lengths[:, 0], \
+            lengths[:, 0]
+    wav_batch = wav.cpu().numpy()
+    mel = mel.cpu().numpy()
+    linear = linear.cpu().numpy()
     align = align.cpu().numpy()
     lengths = lengths.cpu().numpy()
+    dec_lengths = dec_lengths.cpu().numpy()
 
     results = []
     time_up = getattr(cfg.converter, "time_upsampling", 1)

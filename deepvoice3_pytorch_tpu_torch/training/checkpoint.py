@@ -33,6 +33,13 @@ same state.
 A file is read as msgpack, or as the pickle that the JAX package writes
 when flax is absent. Loads copy into the template's tensors in place, on
 their device.
+
+On a mesh (parallel/mesh.py) the file is the same: `save_checkpoint(...,
+mesh=)` all-gathers the leaves that tensor parallelism sliced, and their
+moments, on every rank, and the mesh's first rank alone writes; a load into
+a sliced tree (`shard_params`) reads the whole file on every rank and keeps
+the rank's blocks, so a file saved under any mesh resumes under any other,
+or in one process.
 """
 
 import glob
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel import mesh as mesh_lib
 from ..utils import msgpack
 
 _ADAM = "ScaleByAdamState"
@@ -104,11 +112,48 @@ def _desc(tree):
     return "%s%s" % (str(tree.dtype).split(".")[-1], tuple(tree.shape))
 
 
+def _full_tree(params):
+    """param_tree(params) at the full model's shapes: a sliced tree's
+    leaves become meta tensors of the whole leaf's shape."""
+    tree = param_tree(params)
+    layout = mesh_lib.layout_of(params)
+    if layout is None or not layout.axes:
+        return tree
+
+    def walk(t, prefix):
+        if isinstance(t, dict):
+            return {k: walk(v, prefix + k + ".") for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, "%s%d." % (prefix, i)) for i, v in enumerate(t)]
+        return torch.empty(layout.full_shape(prefix[:-1], t.shape),
+                           dtype=t.dtype, device="meta")
+    return walk(tree, "")
+
+
+def _cutter(params):
+    """name, saved array -> the part of it this rank's tree holds (the
+    whole array for a replicated tree)."""
+    layout = mesh_lib.layout_of(params)
+    if layout is None or not layout.axes:
+        return lambda name, a: a
+
+    def cut(name, a):
+        if name not in layout.axes:
+            return a
+        a = np.asarray(a)
+        axis = layout.axes[name]
+        n = a.shape[axis] // layout.size
+        return np.take(a, range(layout.rank * n, (layout.rank + 1) * n),
+                       axis=axis)
+    return cut
+
+
 def opt_state_fingerprint(opt_state, params):
     """JAX's opt_state_fingerprint for the optax chain that `opt_state` (an
     AdamState of `trainer.Optimizer`) stands for, over the tree of
-    `params`."""
-    tree = _desc(param_tree(params))
+    `params` (at the full model's shapes when tensor parallelism sliced
+    it)."""
+    tree = _desc(_full_tree(params))
     if opt_state.nu_max is None:
         scale = "%s(count:int32(),mu:%s,nu:%s)" % (_ADAM, tree, tree)
     else:
@@ -141,6 +186,7 @@ def unflatten_opt_state(template, leaves, params):
     in place; returns the AdamState with the saved count."""
     names = [k for k, _ in jax_order(param_tree(params))]
     targets = _moments(template, names)
+    cut = _cutter(params)
     if len(leaves) != len(targets) + 2:
         raise ValueError(
             "optimizer state mismatch: checkpoint has %d leaves, current "
@@ -152,7 +198,8 @@ def unflatten_opt_state(template, leaves, params):
         raise ValueError("Adam's count %d and the schedule's count %d "
                          "differ; the port keeps one" % tuple(counts))
     for i, (t, leaf) in enumerate(zip(targets, leaves[1:-1])):
-        _copy_into(t, leaf, "optimizer state leaf %d" % (i + 1))
+        _copy_into(t, cut(names[i % len(names)], leaf),
+                   "optimizer state leaf %d" % (i + 1))
     return template._replace(count=counts[0])
 
 
@@ -336,19 +383,28 @@ def wait_pending_saves():
 
 def save_checkpoint(checkpoint_dir, params, opt_state, step, epoch, *,
                     train_seq2seq=True, train_postnet=True,
-                    save_optimizer_state=True, async_save=False):
+                    save_optimizer_state=True, async_save=False, mesh=None):
     """Whole / _seq2seq / _postnet suffixed saves. opt_state: the
     trainer's AdamState or None. async_save=True returns after the device
     snapshot; the file is written by the background writer (call
     wait_pending_saves() before exit) and holds the same bytes as a
-    synchronous save of the same state."""
-    os.makedirs(checkpoint_dir, exist_ok=True)
+    synchronous save of the same state.
+
+    mesh: every rank of the mesh calls the save; the tensor-parallel leaves
+    and moments are all-gathered and the mesh's first rank alone writes the
+    file (the others return its path)."""
+    if mesh is not None:
+        params, opt_state = mesh_lib.gather_state(
+            mesh, params, opt_state if save_optimizer_state else None)
     suffix, tree = _payload(params, train_seq2seq, train_postnet)
+    path = checkpoint_path(checkpoint_dir, int(step), suffix)
+    if not mesh_lib.is_main(mesh):
+        return path
+    os.makedirs(checkpoint_dir, exist_ok=True)
     keep_opt = save_optimizer_state and opt_state is not None
     opt_leaves = flatten_opt_state(opt_state, params) if keep_opt else None
     fingerprint = opt_state_fingerprint(opt_state, params) if keep_opt \
         else None
-    path = checkpoint_path(checkpoint_dir, int(step), suffix)
     if not async_save:
         _save_blob(_host_blob(tree, opt_leaves, fingerprint, step, epoch),
                    path)
@@ -388,33 +444,38 @@ def _saved_list(saved, n):
     return saved
 
 
-def _merge_exact(template, saved, prefix=""):
+def _merge_exact(template, saved, prefix="", cut=None):
     """Copy every leaf that `saved` holds into the template's tensor (same
-    shape required); leaves it lacks keep their values (partial
-    payloads)."""
+    shape required, after cut(name, array): a sliced tree's part); leaves
+    it lacks keep their values (partial payloads)."""
     if saved is None:
         return
     if isinstance(template, dict):
         for k, v in template.items():
             if k in saved:
-                _merge_exact(v, saved[k], prefix + k + ".")
+                _merge_exact(v, saved[k], prefix + k + ".", cut)
         return
     if isinstance(template, list):
         saved = _saved_list(saved, len(template))
         for i, (t, s) in enumerate(zip(template, saved)):
-            _merge_exact(t, s, "%s%d." % (prefix, i))
+            _merge_exact(t, s, "%s%d." % (prefix, i), cut)
         return
-    _copy_into(template, saved, "parameter %s" % prefix[:-1])
+    name = prefix[:-1]
+    _copy_into(template, saved if cut is None else cut(name, saved),
+               "parameter %s" % name)
 
 
 def load_checkpoint(path, params_template, opt_state_template=None, *,
                     reset_optimizer=False):
     """Exact resume. params_template: a ParamTree, loaded in place on its
     device; opt_state_template: an AdamState from the optimizer to resume
-    (its moments are loaded in place). Returns (params, opt_state_or_None,
-    step, epoch)."""
+    (its moments are loaded in place). A template that tensor parallelism
+    sliced (parallel/mesh.shard_params) keeps its rank's blocks of the
+    file's leaves and moments. Returns (params, opt_state_or_None, step,
+    epoch)."""
     blob = _load_blob(path)
-    _merge_exact(param_tree(params_template), blob["params"])
+    _merge_exact(param_tree(params_template), blob["params"],
+                 cut=_cutter(params_template))
     opt_state = None
     if not reset_optimizer and blob.get("opt_state") is not None \
             and opt_state_template is not None:
@@ -432,11 +493,19 @@ def load_checkpoint(path, params_template, opt_state_template=None, *,
             int(blob["global_epoch"]))
 
 
+def _refuse_sliced(params, what):
+    layout = mesh_lib.layout_of(params)
+    if layout is not None and layout.axes:
+        raise ValueError("%s takes the whole tree: call it before "
+                         "shard_params(tp=True)" % what)
+
+
 def restore_parts(path, params_template):
     """Shape-tolerant partial restore: leaves whose path exists and whose
     shape matches are copied from the checkpoint, everything else keeps the
     template's value (speaker adaptation). In place; returns the
-    template."""
+    template, which must be whole (restore before shard_params)."""
+    _refuse_sliced(params_template, "restore_parts")
     blob = _load_blob(path)
 
     def merge(t, s):
@@ -461,7 +530,9 @@ def restore_parts(path, params_template):
 
 def load_embedding(path, params):
     """Reuse a trained text embedding: copies encoder.embed_tokens from the
-    checkpoint into `params` in place; returns `params`."""
+    checkpoint into `params` in place; returns `params`, which must be
+    whole (load before shard_params)."""
+    _refuse_sliced(params, "load_embedding")
     blob = _load_blob(path)
     emb = blob["params"]["encoder"]["embed_tokens"]
     _merge_exact(param_tree(params)["encoder"]["embed_tokens"], emb,

@@ -2,11 +2,84 @@
 """Training losses, counterpart of deepvoice3_pytorch_tpu/training/losses.py.
 
 All tensor code on the device of its inputs; the guided-attention penalty is
-a closed-form broadcast, with no host loop."""
+a closed-form broadcast, with no host loop.
+
+Inside a `data_shard` block (the train step on a mesh's "data" axis) each
+loss is this rank's share of the global batch's loss, so that the shares sum
+to it over the ranks: a masked term divides the local sum by the global
+sum of its mask (all-reduced once for all masks, `prime_masks`), a plain
+mean is the local mean over the number of data ranks (the shards have equal
+shapes). A mean of per-shard means is not the global loss when the shards
+hold different valid frame counts."""
+
+import contextvars
 
 import torch
 
 from ..ops.core import sequence_mask
+from ..parallel import mesh as mesh_lib
+
+_shard = contextvars.ContextVar("dv3_torch_loss_shard", default=None)
+
+
+class data_shard:
+    """`with data_shard(mesh):` makes the losses inside the block this
+    rank's shares of the global batch's (see the module docstring);
+    data_shard(None) changes nothing. Per thread, as core.conv_mode."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.totals = {}          # id(mask) -> (mask, its global sum)
+
+    def __enter__(self):
+        self._token = _shard.set(self if self.mesh is not None else None)
+        return self
+
+    def __exit__(self, *exc):
+        _shard.reset(self._token)
+
+    @property
+    def n_data(self):
+        return mesh_lib.axis_size(self.mesh, mesh_lib.DATA_AXIS)
+
+    def prime(self, masks):
+        """The global sums of `masks` in one all-reduce over "data"."""
+        masks = [m for m in {id(m): m for m in masks
+                             if m is not None}.values()
+                 if id(m) not in self.totals]
+        if not masks:
+            return
+        sums = torch.stack([torch.sum(m) for m in masks])
+        mesh_lib.all_reduce(sums, mesh_lib.axis_group(self.mesh,
+                                                      mesh_lib.DATA_AXIS))
+        for i, m in enumerate(masks):
+            self.totals[id(m)] = (m, sums[i])
+
+
+def prime_masks(*masks):
+    """Inside data_shard: all-reduce the masks' global sums at once, before
+    the losses that divide by them (a no-op outside)."""
+    shard = _shard.get()
+    if shard is not None:
+        shard.prime(masks)
+
+
+def _mask_total(mask, mask_):
+    """sum(mask_), mask_ being mask broadcast over channels: the local sum,
+    or inside data_shard the global one."""
+    shard = _shard.get()
+    if shard is None:
+        return torch.sum(mask_)
+    if id(mask) not in shard.totals:
+        shard.prime([mask])
+    return shard.totals[id(mask)][1] * (mask_.numel() // mask.numel())
+
+
+def _mean(x):
+    """torch.mean(x), or inside data_shard this shard's share of the global
+    mean."""
+    shard = _shard.get()
+    return torch.mean(x) if shard is None else torch.mean(x) / shard.n_data
 
 
 def logit(x, eps=1e-8):
@@ -21,16 +94,16 @@ def masked_l1_loss(y_hat, y, mask):
     """sum(|y_hat - y| * mask) / sum(mask broadcast over channels).
     mask: (B, T, 1)."""
     mask_ = mask.expand(y_hat.shape)
-    return torch.sum(torch.abs(y_hat - y) * mask_) / torch.sum(mask_)
+    return torch.sum(torch.abs(y_hat - y) * mask_) / _mask_total(mask, mask_)
 
 
 def l1_loss(y_hat, y):
-    return torch.mean(torch.abs(y_hat - y))
+    return _mean(torch.abs(y_hat - y))
 
 
 def masked_mean(y, mask):
     mask_ = mask.expand(y.shape)
-    return torch.sum(y * mask_) / torch.sum(mask_)
+    return torch.sum(y * mask_) / _mask_total(mask, mask_)
 
 
 def softplus(x):
@@ -44,8 +117,8 @@ def binary_divergence(y_hat, y, mask, masked_loss_weight):
     z = -y * y_hat_logits + softplus(y_hat_logits)
     w = masked_loss_weight
     if w > 0:
-        return w * masked_mean(z, mask) + (1 - w) * torch.mean(z)
-    return torch.mean(z)
+        return w * masked_mean(z, mask) + (1 - w) * _mean(z)
+    return _mean(z)
 
 
 def spec_loss(y_hat, y, mask, *, masked_loss_weight=0.5,
@@ -88,7 +161,7 @@ def bce_loss(y_hat, y):
                         torch.log(torch.where(lo_sat, half, y_hat)))
     log_1mp = torch.where(hi_sat, hundred,
                           torch.log1p(-torch.where(hi_sat, half, y_hat)))
-    return -torch.mean(y * log_p + (1 - y) * log_1mp)
+    return -_mean(y * log_p + (1 - y) * log_1mp)
 
 
 def guided_attention_matrix(input_lengths, decoder_lengths, max_input_len,
@@ -112,10 +185,10 @@ def guided_attention_loss(attn, input_lengths, decoder_lengths, g=0.2):
     tensor."""
     W = guided_attention_matrix(input_lengths, decoder_lengths,
                                 attn.shape[-1], attn.shape[-2], g)
-    return torch.mean(attn * W[None])
+    return _mean(attn * W[None])
 
 
-__all__ = ["logit", "masked_l1_loss", "l1_loss", "masked_mean",
+__all__ = ["data_shard", "prime_masks", "logit", "masked_l1_loss", "l1_loss", "masked_mean",
            "binary_divergence", "spec_loss", "bce_loss",
            "guided_attention_matrix", "guided_attention_loss",
            "sequence_mask"]

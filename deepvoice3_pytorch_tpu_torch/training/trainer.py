@@ -21,14 +21,24 @@ master parameters and the Adam moments in place, which saves a copy of each.
 
 On CUDA the step's kw > 1 convolutions run kernel B3 (`conv_mode="kernel"`,
 the default); `conv_mode="library"` runs them through F.conv1d.
+
+On a mesh (`make_train_step(..., mesh=)`, parallel/mesh.py) each rank takes
+its rows of the global batch; the losses are its shares of the global
+batch's (losses.data_shard), and the gradients and the metrics are summed
+over "data" in one flat buffer, so every rank applies the same update to the
+same parameters. With tensor parallelism (a tree that `shard_params` sliced)
+the forward runs inside core.tensor_parallel, and the clip and `grad_norm`
+count the sliced leaves' squares over "model" once.
 """
 
+import contextlib
 from typing import Any, NamedTuple, Optional
 
 import torch
 
 from ..builder import TTSModelConfig, model_forward
 from ..ops import core
+from ..parallel import mesh as mesh_lib
 from ..params import nest
 from . import losses
 from . import lrschedule as lrs
@@ -112,10 +122,12 @@ class Optimizer(NamedTuple):
         return AdamState(0, zeros(), zeros(), transforms,
                          zeros() if self.amsgrad else None)
 
-    def apply(self, params, grads, state):
+    def apply(self, params, grads, state, norm_fn=None):
         """Update `params` and the moments in place from `grads` (dotted
         name -> tensor; names missing from grads have a zero gradient).
-        Returns the new AdamState."""
+        norm_fn(names, tensors): the clip's global norm (global_norm's by
+        default; the tensor-parallel norm on a mesh). Returns the new
+        AdamState."""
         names = list(params) if self.weight_decay > 0 else list(grads)
         if not names:
             return state._replace(count=state.count + 1)
@@ -128,7 +140,8 @@ class Optimizer(NamedTuple):
         if self.clip_thresh > 0:
             # (g / g_norm) * max_norm when g_norm >= max_norm, else g; the
             # untriggered branch divides and multiplies by 1, which is exact
-            g_norm = global_norm(g)
+            g_norm = (global_norm(g) if norm_fn is None
+                      else norm_fn(names, g))
             keep = g_norm < self.clip_thresh
             one = torch.ones_like(g_norm)
             g = torch._foreach_div(g, torch.where(keep, one, g_norm))
@@ -226,6 +239,7 @@ def compute_losses(outputs, batch, lc: LossConfig):
             target_mask = decoder_target_mask
         decoder_target_mask = decoder_target_mask[:, r:, :]
         target_mask = target_mask[:, r:, :]
+        losses.prime_masks(decoder_target_mask, target_mask)
     else:
         decoder_target_mask, target_mask = None, None
 
@@ -263,7 +277,8 @@ def compute_losses(outputs, batch, lc: LossConfig):
 
 
 def make_train_step(cfg: TTSModelConfig, lc: LossConfig, optimizer, mask,
-                    compute_dtype=torch.float32, conv_mode="kernel"):
+                    compute_dtype=torch.float32, conv_mode="kernel",
+                    mesh=None):
     """Build the train step: `step(state, batch, generator) -> (state,
     metrics)`.
 
@@ -279,17 +294,31 @@ def make_train_step(cfg: TTSModelConfig, lc: LossConfig, optimizer, mask,
     against the untouched f32 targets. Adam's moments stay f32.
 
     conv_mode: "kernel" runs every kw > 1 conv through kernel B3 (its plain
-    version for CPU tensors); "library" through F.conv1d."""
+    version for CPU tensors); "library" through F.conv1d.
+
+    mesh: a parallel.mesh DeviceMesh; batch is then this rank's rows of the
+    global batch (mesh.shard_batch), the parameters those `shard_params`
+    placed, and the metrics are the global batch's. Without it the step
+    makes no collective."""
     compute_dtype = getattr(torch, compute_dtype) \
         if isinstance(compute_dtype, str) else compute_dtype
     if conv_mode not in core.CONV_MODES:
         raise ValueError("conv_mode must be one of %s" % (core.CONV_MODES,))
     cast = compute_dtype != torch.float32
 
-    def loss_fn(leaves, batch, generator):
+    def loss_fn(leaves, batch, generator, sliced):
         tree = {k: v.to(compute_dtype) if cast and v.dtype == torch.float32
                 else v for k, v in leaves.items()}
-        params = nest(tree)
+        with tp_block([tree[k] for k in sliced]):
+            return forward_losses(nest(tree), batch, generator)
+
+    def tp_block(sharded):
+        if not sharded:
+            return contextlib.nullcontext()
+        return core.tensor_parallel(
+            mesh_lib.axis_group(mesh, mesh_lib.MODEL_AXIS), sharded)
+
+    def forward_losses(params, batch, generator):
         mel_in = batch["mel"].to(compute_dtype) if cast else batch["mel"]
         if lc.train_seq2seq:
             outputs = model_forward(
@@ -315,16 +344,32 @@ def make_train_step(cfg: TTSModelConfig, lc: LossConfig, optimizer, mask,
         leaves = dict(state.params.named_parameters())
         trained = [k for k, v in leaves.items() if mask[k] and
                    v.requires_grad]
-        with core.conv_mode(conv_mode):
-            loss, metrics = loss_fn(leaves, batch, generator)
+        layout = mesh_lib.layout_of(state.params) if mesh is not None \
+            else None
+        sliced = layout.axes if layout is not None else {}
+        with core.conv_mode(conv_mode), losses.data_shard(mesh):
+            loss, metrics = loss_fn(leaves, batch, generator, sliced)
         grads = torch.autograd.grad(loss, [leaves[k] for k in trained],
                                     allow_unused=True)
         grads = {k: g for k, g in zip(trained, grads) if g is not None}
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = (global_norm(grads.values()) if grads
-                                else torch.zeros(()))
+        if mesh is not None:
+            # one flat all-reduce over "data": the gradients, and the
+            # metrics (each rank's share of the global batch's value)
+            mesh_lib.reduce_over_data(mesh, list(grads.values()) + [
+                v.reshape(1) for v in metrics.values()])
+        norm_fn = None
+        if sliced:
+            def norm_fn(names, tensors):
+                return mesh_lib.tp_global_norm(
+                    mesh, [k in sliced for k in names], tensors)
+        metrics["grad_norm"] = (
+            torch.zeros(()) if not grads
+            else global_norm(grads.values()) if norm_fn is None
+            else norm_fn(list(grads), list(grads.values())))
         with torch.no_grad():
-            opt_state = optimizer.apply(leaves, grads, state.opt_state)
+            opt_state = optimizer.apply(leaves, grads, state.opt_state,
+                                        norm_fn)
         return TrainState(state.params, opt_state, state.step + 1), metrics
 
     return train_step
