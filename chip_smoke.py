@@ -212,17 +212,24 @@ Phases, one line each; any failure exits non-zero before the result lines:
      not a scaling figure; then B3 at the five tp = 2 shapes (each rank's
      half of N) against its plain version and float64 (phase 3's f32 bar,
      device ms beside cuDNN's and the bound), B1 and B2 at a rank's 16
-     rows against their plain versions (the B1 and B2 bars). A mismatch,
-     a rank that dies or a collective that raises fails the smoke. The
-     smoke's whole time is printed before the result lines.
+     rows against their plain versions (the B1 and B2 bars); (c) the same
+     two processes, mesh (1, 2) with sequence parallelism (each rank 64
+     of the 128 decoder frames, the tp slices as storage): 3 train steps
+     against (a)'s first 3 at (b)'s bars, ms a step, the halo exchanges
+     and their bytes a step, B3's launches by route and forward shapes
+     (the decoder's dilation-27 conv on 64 + 54 frames must be among
+     them), then B3 at the four sp = 2 shapes (a block and its halo)
+     against its plain version and float64. A mismatch, a rank that dies
+     or a collective that raises fails the smoke. The smoke's whole time
+     is printed before the result lines.
 The line before the last is the kernels' JSON record (B1's launches
 summed over the three builders' main paths and the serving paths, its
 worst error over the four B1 phases; its times are the LJSpeech phase's;
 `fused_decode_slots` is the serving mode alone: its launches on the
 serving paths, B1_serve's error and times; `griffin_lim_stream` counts
 its launches on the stream and serving paths; every launch count adds
-the command lines' and phase mesh's, both ranks of (b) included); the last
-line is
+the command lines' and phase mesh's, both ranks of (b) and (c) included,
+and B3's rows give (c)'s share as `sp_launches`); the last line is
 {"ok": true, "device": {...}}. Each record's "timing" names how its "ms"
 and "plain_ms" were taken: "host-paced" (cuda_ms: events around calls as
 the host issues them) or "device" (device_ms: the calls queued behind a
@@ -275,9 +282,10 @@ in the same turns; nothing else runs.
     python3 chip_smoke.py --mesh-only
 
 builds the kernels and runs phase mesh (18) alone; it starts this script
-twice more as `--mesh-rank RANK 2 WORK`, the ranks of (b).
+twice more as `--mesh-rank RANK 2 WORK`, the ranks of (b) and (c).
 """
 
+import collections
 import copy
 import json
 import os
@@ -495,8 +503,8 @@ def _wgrad64(x, dy, pad, dil, kw):
 
 
 def _b3_inputs(torch, cls, B, dtype, dev, seed):
-    name, count, C, N, tmul, dil, causal = cls
-    T = tmul * T_DEC
+    name, count, C, N, tmul, dil, causal = cls[:7]
+    T = cls[7] if len(cls) > 7 else tmul * T_DEC    # frames, where given
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(B, T, C, generator=g).to(dev, dt)
@@ -4711,6 +4719,12 @@ RANK_STEPS = 3       # (b)'s dp = 2 and tp = 2 steps, against (a)'s first 3
 # the tp = 2 shapes of B3 (CONV_CLASSES with each rank's half of N)
 TP2_CLASSES = [(c[0] + "_tp2", c[1], c[2], c[3] // 2) + tuple(c[4:])
                for c in CONV_CLASSES]
+# the sp = 2 shapes of B3: each rank's block of frames (half of T) extended
+# by the halo its conv reads, (kw - 1) * dilation frames before a causal
+# conv's block, (kw - 1) // 2 * dilation on each side of another's
+SP2_CLASSES = [(c[0] + "_sp2",) + tuple(c[1:7]) + (
+    c[4] * T_DEC // 2 + ((KW - 1) * c[5] if c[6] else 2 * (KW // 2) * c[5]),)
+               for c in CONV_CLASSES if c[0] != "encoder"]
 
 
 def mesh_hparams(hp):
@@ -4722,11 +4736,12 @@ def mesh_hparams(hp):
 
 
 def mesh_train(torch, pkg, hp, dev, seed, batch, steps, mesh=None, tp=False,
-               snap=None):
+               snap=None, sp=False):
     """`steps` f32 kernel-mode train steps from the seeded weights on the
-    global `batch` (this rank's rows on a mesh): losses, grad norms, the
-    host ms a step over the steps after the second (synchronised), and the
-    whole parameters (on the host) after `snap` steps and at the end."""
+    global `batch` (this rank's rows on a mesh, and with sp its block of
+    frames): losses, grad norms, the host ms a step over the steps after
+    the second (synchronised), and the whole parameters (on the host) after
+    `snap` steps and at the end."""
     from deepvoice3_pytorch_tpu_torch.parallel import mesh as mesh_lib
     from deepvoice3_pytorch_tpu_torch.training import trainer
 
@@ -4734,11 +4749,12 @@ def mesh_train(torch, pkg, hp, dev, seed, batch, steps, mesh=None, tp=False,
                                                    seed=seed, device=dev)
     if mesh is not None:
         mesh_lib.shard_params(params, mesh, tp=tp, cfg=cfg)
-        batch = mesh_lib.shard_batch(mesh, batch)
+        batch = mesh_lib.shard_batch(mesh, batch, sp=sp)
     opt = trainer.make_optimizer(hp, trainer.make_lr_fn(hp))
-    step = trainer.make_train_step(cfg, trainer.loss_config_from_hparams(hp),
-                                   opt, trainer.trainable_mask(params, cfg),
-                                   mesh=mesh)
+    step = trainer.make_train_step(
+        cfg, trainer.loss_config_from_hparams(hp), opt,
+        trainer.trainable_mask(params, cfg), mesh=mesh,
+        seq_sharding=mesh_lib.seq_sharding(mesh) if sp else None)
     state = trainer.init_train_state(params, opt)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -4748,6 +4764,7 @@ def mesh_train(torch, pkg, hp, dev, seed, batch, steps, mesh=None, tp=False,
         return {k: v.detach().cpu() for k, v in p.state_dict().items()}
 
     out = {"loss": [], "grad_norm": []}
+    before = dict(mesh_lib.COUNTS)
     for i in range(steps):
         if i == min(2, steps - 1):
             sync(torch, dev)
@@ -4759,6 +4776,9 @@ def mesh_train(torch, pkg, hp, dev, seed, batch, steps, mesh=None, tp=False,
             out["snap"] = whole()
     sync(torch, dev)
     out["ms"] = (time.time() - t) * 1e3 / (steps - min(2, steps - 1))
+    # the steps' collectives (and snap's gathers, if any)
+    out["collectives_per_step"] = {
+        k: (v - before.get(k, 0)) / steps for k, v in mesh_lib.COUNTS.items()}
     out["params"] = whole()
     return out
 
@@ -4964,10 +4984,10 @@ def mesh_world_one(torch, pkg, hp, dev, seed, card, kernels):
 
 
 def mesh_rank_main(argv):
-    """A rank of (b): `chip_smoke.py --mesh-rank RANK WORLD WORK`. Joins
-    the gloo group through WORK/init on card 0, runs dp = 2 and tp = 2
-    train steps and dp = 2 tts_batch against (a)'s numbers in WORK/ref.pt,
-    and writes what it found to WORK/rank<RANK>.json."""
+    """A rank of (b) and (c): `chip_smoke.py --mesh-rank RANK WORLD WORK`.
+    Joins the gloo group through WORK/init on card 0, runs dp = 2, tp = 2
+    and sp = 2 train steps and dp = 2 tts_batch against (a)'s numbers in
+    WORK/ref.pt, and writes what it found to WORK/rank<RANK>.json."""
     import torch
     import torch.distributed as dist
 
@@ -5005,19 +5025,28 @@ def mesh_rank_main(argv):
 
     with core.strict_numerics():
         batch = bench_batch(torch, hp0, en.n_vocab, ref["B"], dev)
-        for label, shape, tp in (("dp2", (2, 1), False),
-                                 ("tp2", (1, 2), True)):
+        # (b) dp = 2 and tp = 2; (c) sp = 2 (frames over "model", with the
+        # tp slices as storage)
+        for label, shape, tp, sp in (("dp2", (2, 1), False, False),
+                                     ("tp2", (1, 2), True, False),
+                                     ("sp2", (1, 2), True, True)):
             mesh = mesh_lib.make_mesh(*shape, device=dev)
             if tp:
+                shapes.clear()
                 conv_cuda._launch_fwd = record
             got, counts = counted(kernels, lambda: mesh_train(
                 torch, pkg, hp0, dev, seed, batch, RANK_STEPS, mesh=mesh,
-                tp=tp))
+                tp=tp, sp=sp))
             conv_cuda._launch_fwd = launch_fwd
             out[label] = dict(train_diff(got, ref["train"]), ms=got["ms"],
                               b3_by_route=counts["conv_taps"]["by_entry"])
+            if tp:
+                out[label + "_fwd_shapes"] = sorted(shapes)
+            if sp:
+                out[label]["per_step"] = got["collectives_per_step"]
+                out[label]["b3_launches_per_step"] = counts["conv_taps"][
+                    "launches"] / RANK_STEPS
             add_counts(out["launches"], counts)
-        out["tp2_fwd_shapes"] = sorted(shapes)
         mesh = mesh_lib.make_mesh(2, 1, device=dev)
         cfg, params = model_builder.build_model(hp, en.n_vocab, seed=seed,
                                                 device=dev)
@@ -5073,8 +5102,9 @@ def mesh_two_processes(torch, repo, ref, want_tts, seed, dev, extra_hp,
 
 
 def mesh_phase(torch, pkg, hp, dev, seed, card, repo, extra_hp=""):
-    """Phase mesh: (a), (b), B3 at the tp = 2 shapes, B1 and B2 at a rank's
-    rows. Returns (ok, rows, launches on the mesh paths). extra_hp: hparams
+    """Phase mesh: (a), (b) and (c), B3 at the tp = 2 and sp = 2 shapes,
+    B1 and B2 at a rank's rows. Returns (ok, rows, launches on the mesh
+    paths). extra_hp: hparams
     overrides (a CPU rehearsal's narrow widths; the kernel checks then
     stay out)."""
     t0 = time.time()
@@ -5087,15 +5117,35 @@ def mesh_phase(torch, pkg, hp, dev, seed, card, repo, extra_hp=""):
     ranks = mesh_two_processes(torch, repo, ref, want_tts, seed, dev,
                                extra_hp)
     label = "two processes on one card: not a scaling figure"
+    sp2_b3 = collections.Counter()     # (c)'s B3 launches, both ranks
     for r, res in enumerate(ranks):
         if res.pop("jax_imported"):
             fail("mesh rank %d imported jax or the JAX package" % r)
         add_counts(launches, res.pop("launches"))
+        sp2 = res.pop("sp2")
+        sp2_shapes = res.pop("sp2_fwd_shapes")
+        sp2_b3.update(sp2["b3_by_route"])
         for key in ("dp2", "tp2"):
             ok &= train_diff_ok(res[key])
         ok &= res["tts_dp2"]["ok"]
         phase("mesh", "(b) rank %d of 2, gloo, card 0 (%s; %s): %s"
               % (r, label, card, json.dumps(res)))
+        # (c): B3 on halo-extended blocks: the decoder's dilation-27 conv
+        # on 64 + 54 frames among the forward's shapes
+        halo_t = T_DEC // 2 + (KW - 1) * 27
+        b3_ok = (sp2["b3_by_route"].get("fwd_pipe", 0) > 0
+                 and sp2["b3_by_route"].get("wgrad_pipe", 0) > 0
+                 and any(x[1] == halo_t for x, _, _ in sp2_shapes))
+        ok &= train_diff_ok(sp2) and sp2["per_step"]["halo"] > 0
+        phase("mesh", "(c) rank %d of 2, sp = 2 (frames over 'model', %d "
+              "decoder frames a rank), gloo, card 0 (%s; %s): %s; B3 "
+              "forward shapes (x, w, dgrad): %s"
+              % (r, T_DEC // 2, label, card, json.dumps(sp2),
+                 json.dumps(sp2_shapes)))
+        if dev.type == "cuda" and not b3_ok:
+            fail("(c) did not run B3 on halo-extended blocks: %s"
+                 % json.dumps(sp2["b3_by_route"]))
+    rows["sp2_b3"] = dict(sp2_b3)
     if dev.type != "cuda":
         return ok, rows, launches
     b3 = {}
@@ -5108,6 +5158,17 @@ def mesh_phase(torch, pkg, hp, dev, seed, card, repo, extra_hp=""):
     phase("mesh", "B3 at the tp = 2 shapes (each rank's half of N), f32 "
           "B=%d, kernel against plain and float64 (%s): %s"
           % (MESH_B, card, json.dumps(b3)))
+    b3_sp = {}
+    for cls in SP2_CLASSES:
+        r = check_b3_class(torch, cls, MESH_B, "float32", dev, seed)
+        b3_sp[cls[0]] = {op: {k: r[op][k] for k in (
+            "err", "ok", "route", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")} for op in ("fwd", "dgrad", "wgrad")}
+        b3_sp[cls[0]]["frames"] = cls[7]
+        ok &= all(r[op]["ok"] for op in ("fwd", "dgrad", "wgrad"))
+    phase("mesh", "(c) B3 at the sp = 2 shapes (a rank's block of frames "
+          "and its halo), f32 B=%d, kernel against plain and float64 (%s): "
+          "%s" % (MESH_B, card, json.dumps(b3_sp)))
     b1 = check_b1(torch, pkg, hp, dev, seed, B=MESH_B)
     b2 = check_b2_rows(torch, dev, seed, MESH_B)
     ok &= b1["ok"] and b2["ok"]
@@ -5115,9 +5176,10 @@ def mesh_phase(torch, pkg, hp, dev, seed, card, repo, extra_hp=""):
           "%.3g (ok %s), %.3f ms, plain %.3f ms; B2 at %d rows: %s (%s)"
           % (MESH_B, b1["err"], b1["ok"], b1["ms"], b1["plain_ms"], MESH_B,
              json.dumps(b2), card))
-    rows.update(ranks=ranks, b3_tp2=b3, b1_rows=b1["err"], b2_rows=b2)
+    rows.update(ranks=ranks, b3_tp2=b3, b3_sp2=b3_sp, b1_rows=b1["err"],
+                b2_rows=b2)
     phase("mesh", "kernel launches on the mesh paths ((a)'s mesh runs and "
-          "both ranks of (b)): %s; the phase took %.1f s"
+          "both ranks of (b) and (c)): %s; the phase took %.1f s"
           % (json.dumps(launches), time.time() - t0))
     return ok, rows, launches
 
@@ -5689,7 +5751,9 @@ def main():
          "plain_ms": step[key]["plain_ms"],
          "bound_ms": step[key]["bound_ms"],
          "bound_by": step[key]["bound_by"],
-         "library_ms": step[key]["library_ms"], "timing": "device"}
+         "library_ms": step[key]["library_ms"], "timing": "device",
+         "sp_launches": mesh_rows["sp2_b3"].get("%s_%s" % (entry, route),
+                                                0)}
         for route, step in (("pipe", b3[(16, "float32")][1]),
                             ("wgmma", b3[(64, "bfloat16")][1]))
         for entry, key, line in (("fwd", "conv_taps_fwd", 157),

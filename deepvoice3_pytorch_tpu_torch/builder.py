@@ -273,10 +273,12 @@ def model_forward(params, cfg: TTSModelConfig, text_sequences, mel_targets, *,
     fam = cfg.family
     B = text_sequences.shape[0]
     speaker_embed = embed_speakers(params, cfg, speaker_ids)
-    encoder_out = fam.encoder_apply(params["encoder"], cfg.encoder,
-                                    text_sequences,
-                                    speaker_embed=speaker_embed,
-                                    training=training, generator=generator)
+    with core.whole_sequence():     # the text is whole under sp too
+        encoder_out = fam.encoder_apply(params["encoder"], cfg.encoder,
+                                        text_sequences,
+                                        speaker_embed=speaker_embed,
+                                        training=training,
+                                        generator=generator)
     mel_outputs, alignments, done, decoder_states = fam.decoder_apply(
         params["decoder"], cfg.decoder, encoder_out, mel_targets,
         text_positions=text_positions, frame_positions=frame_positions,

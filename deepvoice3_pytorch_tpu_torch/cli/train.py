@@ -175,6 +175,9 @@ def device_batches(host_batches, device):
         with torch.cuda.stream(stream):
             placed = {}
             for k, v in batch.items():
+                if k == mesh_lib.FRAME_GROUPS:      # host ints
+                    placed[k] = tuple(v)
+                    continue
                 t = torch.as_tensor(v)
                 t = t.long() if not t.is_floating_point() else t.float()
                 placed[k] = t.pin_memory().to(device, non_blocking=True)
@@ -191,7 +194,8 @@ def _wait(pending, device):
     main = torch.cuda.current_stream(device)
     main.wait_event(ready)
     for t in placed.values():
-        t.record_stream(main)
+        if isinstance(t, torch.Tensor):
+            t.record_stream(main)
     return placed
 
 
@@ -248,8 +252,10 @@ def build_parser():
                    help="write the run's numbers to this JSON file")
     p.add_argument("--mesh-model", type=int, default=1,
                    help="ranks on the 'model' mesh axis: out-channel tensor "
-                        "parallelism over those ranks; the rest of the "
-                        "torchrun ranks form the data-parallel axis")
+                        "parallelism of the weights and sequence "
+                        "parallelism of the frames over those ranks; the "
+                        "rest of the torchrun ranks form the data-parallel "
+                        "axis")
     return p
 
 
@@ -349,14 +355,22 @@ def _train(args, device, mesh, say):
         args, params, state.opt_state, say)
     if opt_state is None:                # a fresh (or reset) optimizer
         opt_state = state.opt_state
+    # --mesh-model > 1 runs tp and sp over the "model" ranks, as the JAX
+    # train.py does: the weights sliced for storage, the frames cut into
+    # blocks
+    sp = mesh is not None and mesh_lib.axis_size(
+        mesh, mesh_lib.MODEL_AXIS) > 1
     if mesh is not None:   # the whole tree restored, then placed
-        tp = mesh_lib.axis_size(mesh, mesh_lib.MODEL_AXIS) > 1
-        mesh_lib.shard_params(params, mesh, tp=tp, cfg=cfg)
+        mesh_lib.shard_params(params, mesh, tp=sp, cfg=cfg)
         opt_state = mesh_lib.shard_moments(opt_state, params.tp_layout)
+    if sp:
+        say("Sequence parallelism: frames over the %d model ranks"
+            % mesh_lib.axis_size(mesh, mesh_lib.MODEL_AXIS))
     state = trainer.TrainState(params, opt_state, global_step)
-    step_fn = trainer.make_train_step(cfg, lc, optimizer, mask,
-                                      compute_dtype=hp.compute_dtype,
-                                      conv_mode=args.conv_mode, mesh=mesh)
+    step_fn = trainer.make_train_step(
+        cfg, lc, optimizer, mask, compute_dtype=hp.compute_dtype,
+        conv_mode=args.conv_mode, mesh=mesh,
+        seq_sharding=mesh_lib.seq_sharding(mesh) if sp else None)
 
     writer = None
     try:
@@ -438,7 +452,7 @@ def _train(args, device, mesh, say):
             random.seed(args.seed * 1000003 + global_epoch)
             host = itertools.islice(iter(loader), skip, None)
             if mesh is not None:     # the same global batch on every rank
-                host = (mesh_lib.shard_batch(mesh, b) for b in host)
+                host = (mesh_lib.shard_batch(mesh, b, sp=sp) for b in host)
             skip = 0
             for batch in device_batches(host, device):
                 tracer.maybe_start(global_step)
@@ -525,7 +539,8 @@ def _train(args, device, mesh, say):
                             for k in summary["files"]}
         summary.update(last_step=global_step, epoch=global_epoch,
                        launches=common.kernel_launches(),
-                       loader_batches=dict(loader.batches))
+                       loader_batches=dict(loader.batches),
+                       collectives=dict(mesh_lib.COUNTS))
         with open(args.summary_json, "w") as f:
             json.dump(summary, f, indent=1)
 

@@ -9,6 +9,16 @@ in order from the one generator where the JAX package splits keys. A
 multi-speaker model (n_speakers > 1) takes a (B, D) speaker embedding:
 softsign biases in the encoder and in every GLU layer, per-sample key and
 query position rates in the decoder.
+
+Under sequence parallelism (ops/core.py `sequence_parallel`) the decoder and
+the converter run on this rank's block of frames as they are: the block is
+whole decoder groups, so the decoder's reshape into r-frame groups, its
+query positions (the block's global `frame_positions`), the speaker
+embedding expanded to the block's length, the attention of the block's
+query rows over the whole text's keys and values (a softmax per row) and
+the transposed convs (kernel == stride) all act frame by frame; only the
+kw > 1 convs reach across the block's edges, and conv1d_apply brings them
+their halo.
 """
 
 import math

@@ -24,9 +24,18 @@ Inside a `tensor_parallel` block, `conv1d_apply` and `linear_apply` on a
 layer that tensor parallelism sliced (parallel/mesh.py) run column-parallel:
 the rank computes its block of out channels and all-gathers the blocks on
 the channel axis, before a GLU or highway gate splits the channels.
+
+Inside a `sequence_parallel` block the activations' frame axis (axis 1) is
+this rank's block of the sequence: every kw > 1 conv first takes the halo
+of frames its window reaches across the block's edges from the ranks that
+hold them (`_Halo`), runs on the halo-extended block with its usual padding
+and keeps the block's own rows, and dropout keeps the block's rows of a
+mask drawn for the whole sequence. `whole_sequence` lifts it for code whose
+time axis is not frame-sharded (the encoder's text).
 """
 
 import contextvars
+import functools
 import math
 
 import torch
@@ -162,6 +171,15 @@ def _conv1d(p, x, dilation, causal):
         pad = ((kw - 1) * dilation, 0)
     else:
         pad = ((kw - 1) // 2 * dilation,) * 2
+    sp = _sp.get()
+    if sp is not None:
+        T = x.shape[1]
+        xe = _Halo.apply(x, sp, pad[0], pad[1])
+        return _conv1d_padded(p, xe, w, pad, dilation)[:, pad[0]:pad[0] + T]
+    return _conv1d_padded(p, x, w, pad, dilation)
+
+
+def _conv1d_padded(p, x, w, pad, dilation):
     if _conv_mode.get() == "kernel":
         return conv_cuda.conv1d_taps(x, w, p["b"], pad, dilation)
     xp = F.pad(x.transpose(1, 2), pad)                   # (B, C, T + pads)
@@ -238,6 +256,113 @@ def _column_parallel(p, x, fn):
     return _GatherFromModel.apply(y, tp.group)
 
 
+# ---------------------------------------------------------------------------
+# sequence parallelism: frame blocks with halo exchanges
+# ---------------------------------------------------------------------------
+
+
+_sp = contextvars.ContextVar("dv3_torch_sequence_parallel", default=None)
+
+
+class sequence_parallel:
+    """`with sequence_parallel(group, groups):` treats axis 1 of the
+    activations inside the block as this rank's block of frames: `groups`
+    holds every rank of `group`'s block size in decoder groups (mesh
+    `frame_groups`), so a tensor of L frames here is at L / groups[rank]
+    frames a group and the blocks of all ranks are known at that rate.
+    Per thread and exception-safe, as conv_mode. The halo exchanges sit in
+    the autograd graph, so the backward that follows the block returns the
+    halo frames' gradients to their owners."""
+
+    def __init__(self, group, groups):
+        self.group = group
+        self.groups = tuple(groups)
+        self.rank = dist.get_rank(group)
+
+    def blocks(self, T):
+        """(every rank's block length, this rank's start, the sequence's
+        length) at the rate of a local tensor of T frames."""
+        per, rem = divmod(T, self.groups[self.rank])
+        if rem:
+            raise ValueError("a block of %d frames is not a whole number of "
+                             "its %d decoder groups"
+                             % (T, self.groups[self.rank]))
+        lengths = tuple(g * per for g in self.groups)
+        return lengths, sum(lengths[:self.rank]), sum(lengths)
+
+    def __enter__(self):
+        self._token = _sp.set(self)
+        return self
+
+    def __exit__(self, *exc):
+        _sp.reset(self._token)
+
+
+class whole_sequence:
+    """`with whole_sequence():` lifts sequence_parallel inside the block,
+    for tensors whose time axis every rank holds whole (the text)."""
+
+    def __enter__(self):
+        self._token = _sp.set(None)
+        return self
+
+    def __exit__(self, *exc):
+        _sp.reset(self._token)
+
+
+@functools.lru_cache(maxsize=1024)
+def _halo_index(plan, device):
+    """The plan's index on `device`, made once (a host-to-card copy each
+    conv would wait for the card)."""
+    return torch.tensor(plan.index, device=device)
+
+
+class _Halo(torch.autograd.Function):
+    """Forward: x (B, L, C), this rank's block, extended by `left` frames
+    before it and `right` after it from the ranks that hold them (zeros past
+    the sequence's ends), through one all-gather of every rank's edge strip
+    (mesh.HaloPlan). Backward: the halo frames' gradients scattered into
+    the strips of their owners, summed over the ranks (one all-reduce), and
+    each rank adds its strip's share to its edge frames."""
+
+    @staticmethod
+    def forward(ctx, x, sp, left, right):
+        B, L, C = x.shape
+        lengths, _, _ = sp.blocks(L)
+        plan = mesh_lib.halo_plan(lengths, sp.rank, left, right)
+        nl, nr = min(left, L), min(right, L)
+        strip = x.new_zeros(B, plan.strip, C)
+        strip[:, left - nl:left] = x[:, L - nl:]
+        strip[:, left:left + nr] = x[:, :nr]
+        mesh_lib.count_halo(strip)
+        strips = mesh_lib.all_gather(strip, sp.group, dim=1)
+        strips = torch.cat([strips, x.new_zeros(B, 1, C)], dim=1)
+        index = _halo_index(plan, x.device)
+        halo = strips.index_select(1, index)
+        ctx.save_for_backward(index)
+        ctx.geometry = (sp, plan, L, nl, nr)
+        return torch.cat([halo[:, :left], x, halo[:, left:]], dim=1)
+
+    @staticmethod
+    def backward(ctx, dxe):
+        sp, plan, L, nl, nr = ctx.geometry
+        (index,) = ctx.saved_tensors
+        left, right = plan.left, plan.right
+        B, _, C = dxe.shape
+        dx = dxe[:, left:left + L].clone()
+        dhalo = torch.cat([dxe[:, :left], dxe[:, left + L:]], dim=1)
+        dstrips = dxe.new_zeros(B, plan.zero + 1, C)
+        dstrips.index_add_(1, index, dhalo)
+        dstrips = dstrips[:, :plan.zero].reshape(
+            B, len(sp.groups), plan.strip, C).transpose(0, 1).contiguous()
+        mesh_lib.count_halo(dstrips)
+        mesh_lib.all_reduce(dstrips, sp.group)
+        own = dstrips[sp.rank]
+        dx[:, L - nl:] += own[:, left - nl:left]
+        dx[:, :nr] += own[:, left:left + nr]
+        return dx, None, None, None
+
+
 def conv_transpose1d_apply(p, x, *, stride=2):
     """Transposed conv (B, T, C) -> (B, T*stride, C_out) for kernel_size ==
     stride, the only shape the models use: one matmul plus an interleave,
@@ -269,8 +394,15 @@ def dropout(generator, x, rate, training):
     if not training or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty(x.shape, device=x.device).bernoulli_(
-        keep, generator=generator)
+    sp = _sp.get()
+    if sp is None:
+        mask = torch.empty(x.shape, device=x.device).bernoulli_(
+            keep, generator=generator)
+    else:       # this block's frames of the whole sequence's mask
+        _, start, total = sp.blocks(x.shape[1])
+        mask = torch.empty((x.shape[0], total) + x.shape[2:],
+                           device=x.device).bernoulli_(
+            keep, generator=generator)[:, start:start + x.shape[1]]
     return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
 
 

@@ -17,16 +17,25 @@ process per card (NCCL), or CPU processes (gloo):
     such a layer computes its slice and all-gathers it on the channel axis
     (Megatron's column-parallel pair, ops/core.py).
 
-Sequence parallelism (the JAX package's `seq_sharding`, frames over "model")
-is not ported yet.
+  * sequence parallelism over "model" (`seq_sharding`, `shard_batch(...,
+    sp=True)`): every model rank keeps its block of frames of the global
+    batch, the encoder runs on the whole text on every rank, and inside
+    `ops.core.sequence_parallel` every kw > 1 conv exchanges the halo of
+    frames its window reaches across the block's edges (`HaloPlan`, an
+    autograd Function in ops/core.py), so kernel B3 runs on halo-extended
+    blocks. The tp slices stay the storage (moments, checkpoints, the
+    clip's norm); the sp step gathers them whole before its forward and
+    sums the gradients over "data" and "model" (training/trainer.py).
 
 Every collective of the port goes through `all_reduce`, `all_gather` and
 `broadcast` below, and none is caught: a failed collective ends the run.
 """
 
 import collections
+import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
@@ -84,9 +93,11 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, group=None,
         dist.init_process_group(
             "nccl" if device_type == "cuda" else "gloo",
             store=dist.HashStore(), rank=0, world_size=1)
-    return DeviceMesh(device_type,
+    mesh = DeviceMesh(device_type,
                       torch.tensor(ranks).reshape(n_data, n_model),
                       mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    mesh.dv3_group = group if group is not None else dist.group.WORLD
+    return mesh
 
 
 def axis_size(mesh, axis):
@@ -100,6 +111,12 @@ def axis_rank(mesh, axis):
 
 def axis_group(mesh, axis):
     return mesh.get_group(axis)
+
+
+def mesh_group(mesh):
+    """The process group of every rank of the mesh (the group it was made
+    over)."""
+    return mesh.dv3_group
 
 
 def is_main(mesh):
@@ -134,15 +151,128 @@ def shard_rows(n_rows, n_data, data_rank):
     return slice(data_rank * per, (data_rank + 1) * per)
 
 
-def shard_batch(mesh, batch):
+def seq_sharding(mesh):
+    """DTensor placements of a frame-sharded (B, T, ...) batch entry: rows
+    over "data", frames over "model" (the JAX package's seq_sharding, P(data,
+    model)). Given to `make_train_step(seq_sharding=)` it turns sequence
+    parallelism on.
+
+    The JAX step drops its Pallas conv for XLA's tap sum under sp
+    (`resolve_conv_mode`), because GSPMD cannot partition the kernel's
+    halo. The port writes the halo exchange itself (ops/core.py,
+    `sequence_parallel`), so its sp step keeps conv_mode="kernel": B3 runs
+    every kw > 1 conv on the halo-extended block. Both compute the same
+    function."""
+    from torch.distributed.tensor import Shard
+
+    return (Shard(0), Shard(1))
+
+
+# batch keys whose axis 1 counts decoder groups (r mel frames each); JAX's
+# _SEQ_KEYS, "mel" and "y", count mel and linear frames
+_GROUP_KEYS = ("frame_positions", "done")
+# the r target frames that follow a rank's block of mel / y (the losses
+# compare output frame t with target frame t + r), and the decoder groups
+# of every model rank's block
+NEXT_KEYS = {"mel": "mel_next", "y": "y_next"}
+FRAME_GROUPS = "frame_groups"
+
+
+def frame_groups(n_groups, n_model):
+    """Decoder groups of each model rank's block: np.array_split's sizes
+    (the first n_groups % n_model ranks take one more). A block is never
+    empty."""
+    if n_groups < n_model:
+        raise ValueError("%d decoder frames do not split over %d model "
+                         "ranks" % (n_groups, n_model))
+    base, extra = divmod(n_groups, n_model)
+    return tuple(base + (i < extra) for i in range(n_model))
+
+
+def _frames_after(v, end, n):
+    """v[:, end:end + n], zero frames past v's end."""
+    part = v[:, end:end + n]
+    if part.shape[1] == n:
+        return part
+    shape = tuple(part.shape[:1]) + (n - part.shape[1],) + tuple(
+        part.shape[2:])
+    if isinstance(v, torch.Tensor):
+        return torch.cat([part, part.new_zeros(shape)], dim=1)
+    return np.concatenate([part, np.zeros(shape, part.dtype)], axis=1)
+
+
+def shard_batch(mesh, batch, *, sp: bool = False):
     """This rank's rows of every entry of `batch` (a dict of arrays or
     tensors with leading batch dims, the global collated batch; None entries
-    stay None)."""
+    stay None).
+
+    sp=True also cuts the frame axis over "model" (`seq_sharding`): rank m
+    keeps block m of `frame_groups(T_dec, n_model)` decoder groups of
+    `frame_positions` and `done`, the same frames of `mel` (r mel frames a
+    group) and of `y` (r * downsample_step linear frames a group), with r
+    and downsample_step read from the shapes. It adds `mel_next` and
+    `y_next`, the r target frames after the block (zeros past the end), and
+    `frame_groups`, the blocks' sizes in decoder groups (a tuple of ints,
+    which stays on the host)."""
     n_data, rank = axis_size(mesh, DATA_AXIS), axis_rank(mesh, DATA_AXIS)
     out = {}
     for k, v in batch.items():
         out[k] = None if v is None else v[shard_rows(len(v), n_data, rank)]
+    if not sp:
+        return out
+    n_groups = out["frame_positions"].shape[1]
+    r = out["mel"].shape[1] // n_groups
+    per_group = {"mel": r, "y": r * (out["y"].shape[1]
+                                     // out["mel"].shape[1])}
+    groups = frame_groups(n_groups, axis_size(mesh, MODEL_AXIS))
+    m = axis_rank(mesh, MODEL_AXIS)
+    start, end = sum(groups[:m]), sum(groups[:m + 1])
+    for k in _GROUP_KEYS:
+        out[k] = out[k][:, start:end]
+    for k, f in per_group.items():
+        out[NEXT_KEYS[k]] = _frames_after(out[k], end * f, r)
+        out[k] = out[k][:, start * f:end * f]
+    out[FRAME_GROUPS] = groups
     return out
+
+
+class HaloPlan(NamedTuple):
+    """Where the halo frames of one conv come from. Every model rank sends
+    a strip of `left + right` frames: its last min(left, L) frames
+    right-aligned in the first `left`, its first min(right, L) frames in
+    the last `right`. `index[i]` is the position of halo frame i (the
+    `left` frames before the block, then the `right` after it) in the
+    ranks' strips laid end to end, or `zero` (the extra frame after them)
+    for a frame past either end of the sequence."""
+    index: tuple
+    strip: int
+    zero: int
+    left: int
+    right: int
+
+
+@functools.lru_cache(maxsize=1024)
+def halo_plan(lengths, rank, left, right):
+    """The HaloPlan of model rank `rank` for blocks of `lengths` frames
+    (every rank's, in order) and a conv that reads `left` frames before
+    and `right` after each output frame. A halo longer than a block
+    reaches as many ranks back (or on) as it needs."""
+    starts = [sum(lengths[:j]) for j in range(len(lengths) + 1)]
+    total, strip = starts[-1], left + right
+    zero = strip * len(lengths)
+    index = []
+    for g in list(range(starts[rank] - left, starts[rank])) + list(
+            range(starts[rank + 1], starts[rank + 1] + right)):
+        if g < 0 or g >= total:
+            index.append(zero)
+            continue
+        j = max(i for i in range(len(lengths)) if starts[i] <= g)
+        p = g - starts[j]
+        if g < starts[rank]:            # in j's tail
+            index.append(j * strip + left - (lengths[j] - p))
+        else:                           # in j's head
+            index.append(j * strip + left + p)
+    return HaloPlan(tuple(index), strip, zero, left, right)
 
 
 def dropout_seed(base, mesh):
@@ -316,10 +446,12 @@ def gather_state(mesh, params, opt_state=None):
 # ---------------------------------------------------------------------------
 
 
-def reduce_over_data(mesh, tensors):
+def reduce_over_data(mesh, tensors, whole_mesh=False):
     """Sum every tensor of the list over "data" (in place), through one
-    flat buffer a dtype: one collective for the whole list."""
-    group = axis_group(mesh, DATA_AXIS)
+    flat buffer a dtype: one collective for the whole list. whole_mesh:
+    over every rank of the mesh ("data" and "model"), as the sp step's
+    gradients and losses hold only this rank's frames."""
+    group = mesh_group(mesh) if whole_mesh else axis_group(mesh, DATA_AXIS)
     by_dtype = collections.defaultdict(list)
     for t in tensors:
         by_dtype[t.dtype].append(t)
@@ -328,6 +460,29 @@ def reduce_over_data(mesh, tensors):
         all_reduce(flat, group)
         torch._foreach_copy_(ts, _unflatten_dense_tensors(flat, ts))
     return tensors
+
+
+def gather_sliced(mesh, named, layout):
+    """{dotted name: the whole leaf} of the tp-sliced leaves of `named`
+    (name -> this rank's block), in one flat all-gather over "model": the
+    sp step runs its forward on whole weights (ZeRO-3 style)."""
+    names = sorted(layout.axes)
+    local = [named[k].detach() for k in names]
+    flat = _flatten_dense_tensors(local)
+    parts = all_gather(flat, axis_group(mesh, MODEL_AXIS)).view(
+        layout.size, -1)
+    pieces = [_unflatten_dense_tensors(parts[m], local)
+              for m in range(layout.size)]
+    return {k: torch.cat([p[i] for p in pieces], dim=layout.axes[k])
+            for i, k in enumerate(names)}
+
+
+def own_block(layout, name, t):
+    """This rank's block of a whole leaf (or its gradient) that `layout`
+    slices; other leaves come back as they are."""
+    if name not in layout.axes:
+        return t
+    return _block(t, layout.axes[name], layout.rank, layout.size)
 
 
 def tp_global_norm(mesh, sharded, tensors):
@@ -381,6 +536,13 @@ def _count(op, t, staged):
     COUNTS[op + "_bytes"] += t.numel() * t.element_size()
     if staged:
         COUNTS["staged"] += 1
+
+
+def count_halo(t):
+    """One halo exchange of `t` (a forward's edge strip, a backward's
+    strips), besides the collective that carries it."""
+    COUNTS["halo"] += 1
+    COUNTS["halo_bytes"] += t.numel() * t.element_size()
 
 
 def _host(t):

@@ -10,9 +10,17 @@ to it over the ranks: a masked term divides the local sum by the global
 sum of its mask (all-reduced once for all masks, `prime_masks`), a plain
 mean is the local mean over the number of data ranks (the shards have equal
 shapes). A mean of per-shard means is not the global loss when the shards
-hold different valid frame counts."""
+hold different valid frame counts.
 
+With sequence parallelism (`data_shard(mesh, sp=True)`) the shards are also
+blocks of frames over "model", of unequal lengths: the mask sums are
+all-reduced over the whole mesh, and a plain mean divides the local sum by
+the global count, whose frame axis (axis -2 of every loss term) the caller
+gives with `global_frames`."""
+
+import contextlib
 import contextvars
+import math
 
 import torch
 
@@ -27,8 +35,10 @@ class data_shard:
     rank's shares of the global batch's (see the module docstring);
     data_shard(None) changes nothing. Per thread, as core.conv_mode."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, sp=False):
         self.mesh = mesh
+        self.sp = sp
+        self.frames = None        # sp: the global length of axis -2
         self.totals = {}          # id(mask) -> (mask, its global sum)
 
     def __enter__(self):
@@ -50,8 +60,9 @@ class data_shard:
         if not masks:
             return
         sums = torch.stack([torch.sum(m) for m in masks])
-        mesh_lib.all_reduce(sums, mesh_lib.axis_group(self.mesh,
-                                                      mesh_lib.DATA_AXIS))
+        mesh_lib.all_reduce(sums, mesh_lib.mesh_group(self.mesh) if self.sp
+                            else mesh_lib.axis_group(self.mesh,
+                                                     mesh_lib.DATA_AXIS))
         for i, m in enumerate(masks):
             self.totals[id(m)] = (m, sums[i])
 
@@ -62,6 +73,21 @@ def prime_masks(*masks):
     shard = _shard.get()
     if shard is not None:
         shard.prime(masks)
+
+
+@contextlib.contextmanager
+def global_frames(n):
+    """Inside data_shard(sp=True): the plain means of the block divide by
+    counts whose axis -2 (frames) is n long globally. A no-op elsewhere."""
+    shard = _shard.get()
+    if shard is None or not shard.sp:
+        yield
+        return
+    saved, shard.frames = shard.frames, n
+    try:
+        yield
+    finally:
+        shard.frames = saved
 
 
 def _mask_total(mask, mask_):
@@ -79,7 +105,15 @@ def _mean(x):
     """torch.mean(x), or inside data_shard this shard's share of the global
     mean."""
     shard = _shard.get()
-    return torch.mean(x) if shard is None else torch.mean(x) / shard.n_data
+    if shard is None:
+        return torch.mean(x)
+    if not shard.sp:
+        return torch.mean(x) / shard.n_data
+    if shard.frames is None:
+        raise RuntimeError("a plain mean of a frame block needs its global "
+                           "length (losses.global_frames)")
+    others = math.prod(x.shape[:-2] + x.shape[-1:])
+    return torch.sum(x) / (others * shard.frames * shard.n_data)
 
 
 def logit(x, eps=1e-8):
@@ -165,30 +199,32 @@ def bce_loss(y_hat, y):
 
 
 def guided_attention_matrix(input_lengths, decoder_lengths, max_input_len,
-                            max_decoder_len, g=0.2):
+                            max_decoder_len, g=0.2, t_start=0):
     """W[b, t_dec, n_text] = 1 - exp(-((n/N - t/T)^2) / (2 g^2)), zero
-    outside the valid lengths. (B, T_dec, N_text) f32."""
+    outside the valid lengths. (B, T_dec, N_text) f32. t_start: the global
+    index of the first decoder frame (a block's, under sp)."""
     dev = input_lengths.device
     N = input_lengths.float()[:, None, None]
     T = decoder_lengths.float()[:, None, None]
     n = torch.arange(max_input_len, dtype=torch.float32,
                      device=dev)[None, None, :]
-    t = torch.arange(max_decoder_len, dtype=torch.float32,
+    t = torch.arange(t_start, t_start + max_decoder_len, dtype=torch.float32,
                      device=dev)[None, :, None]
     w = 1.0 - torch.exp(-((n / N - t / T) ** 2) / (2.0 * g * g))
     valid = (n < N) & (t < T)
     return torch.where(valid, w, torch.zeros_like(w))
 
 
-def guided_attention_loss(attn, input_lengths, decoder_lengths, g=0.2):
+def guided_attention_loss(attn, input_lengths, decoder_lengths, g=0.2,
+                          t_start=0):
     """attn: (n_layers, B, T_dec, T_text). Mean of attn * W over the whole
-    tensor."""
+    tensor. t_start: the global index of attn's first decoder frame."""
     W = guided_attention_matrix(input_lengths, decoder_lengths,
-                                attn.shape[-1], attn.shape[-2], g)
+                                attn.shape[-1], attn.shape[-2], g, t_start)
     return _mean(attn * W[None])
 
 
-__all__ = ["data_shard", "prime_masks", "logit", "masked_l1_loss", "l1_loss", "masked_mean",
+__all__ = ["data_shard", "prime_masks", "global_frames", "logit", "masked_l1_loss", "l1_loss", "masked_mean",
            "binary_divergence", "spec_loss", "bce_loss",
            "guided_attention_matrix", "guided_attention_loss",
            "sequence_mask"]

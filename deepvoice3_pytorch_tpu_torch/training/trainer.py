@@ -28,7 +28,11 @@ batch's (losses.data_shard), and the gradients and the metrics are summed
 over "data" in one flat buffer, so every rank applies the same update to the
 same parameters. With tensor parallelism (a tree that `shard_params` sliced)
 the forward runs inside core.tensor_parallel, and the clip and `grad_norm`
-count the sliced leaves' squares over "model" once.
+count the sliced leaves' squares over "model" once. With sequence
+parallelism (`seq_sharding=`) each rank also takes its block of frames;
+the sliced leaves are gathered whole for the forward and their gradients
+summed over the mesh before each rank keeps its blocks, so the storage, the
+moments and the clip's norm stay tp's.
 """
 
 import contextlib
@@ -208,14 +212,38 @@ def trainable_mask(params, cfg: TTSModelConfig, *, train_seq2seq=True,
     return mask
 
 
-def compute_losses(outputs, batch, lc: LossConfig):
+def _targets(target, following, r, sp):
+    """The target frames t + r of the outputs that have one: (those
+    targets, the global index of the first, their global count); the
+    outputs they go with are the first as many of the block's. Under sp (a
+    core.sequence_parallel) the block's targets run on into `following`,
+    the r frames after the block."""
+    if sp is None:
+        return target[:, r:], r, target.shape[1] - r
+    _, start, total = sp.blocks(target.shape[1])
+    n = max(0, min(start + target.shape[1], total - r) - start)
+    return (torch.cat([target[:, r:], following], dim=1)[:, :n], start + r,
+            total - r)
+
+
+def _frame_mask(lengths, first, n):
+    """(B, n, 1) f32: 1 where global frame first + i < lengths[b]."""
+    pos = torch.arange(first, first + n, device=lengths.device)
+    return (pos[None, :] < lengths[:, None]).float()[..., None]
+
+
+def compute_losses(outputs, batch, lc: LossConfig, sp=None):
     """The loss blend. batch: x, input_lengths, mel (downsampled), y
     (linear), text_positions, frame_positions, done, target_lengths.
 
     The masks follow the reference's train loop, including its
     downsample_step == 1 quirk: the decoder-domain mask (valid length
     target_lengths // r) is reused for the linear loss when no downsampling
-    is in effect."""
+    is in effect.
+
+    sp: the step's core.sequence_parallel, whose blocks of frames `outputs`
+    and the frame entries of `batch` are (mesh.shard_batch(sp=True)); the
+    losses are then this block's shares (losses.data_shard(sp=True))."""
     mel_outputs, linear_outputs, attn, done_hat = outputs
     r = lc.r
     mel = batch["mel"]
@@ -224,49 +252,58 @@ def compute_losses(outputs, batch, lc: LossConfig):
 
     target_lengths = batch["target_lengths"]
     decoder_lengths = target_lengths // (r * lc.downsample_step)
+    nexts = ({k: batch[n] for k, n in mesh_lib.NEXT_KEYS.items()}
+             if sp is not None else {})
 
     metrics = {}
     loss = 0.0
 
+    mel_t, mel_first, mel_frames = _targets(mel, nexts.get("mel"), r, sp)
+    y_t, lin_first, lin_frames = _targets(y, nexts.get("y"), r, sp)
     if lc.masked_loss_weight > 0:
-        decoder_target_mask = core.sequence_mask(
-            target_lengths // (r * lc.downsample_step),
-            mel.shape[1])[..., None]
+        decoder_target_mask = _frame_mask(decoder_lengths, mel_first,
+                                          mel_t.shape[1])
         if lc.downsample_step > 1:
-            target_mask = core.sequence_mask(target_lengths,
-                                             y.shape[1])[..., None]
+            target_mask = _frame_mask(target_lengths, lin_first,
+                                      y_t.shape[1])
         else:
             target_mask = decoder_target_mask
-        decoder_target_mask = decoder_target_mask[:, r:, :]
-        target_mask = target_mask[:, r:, :]
         losses.prime_masks(decoder_target_mask, target_mask)
     else:
         decoder_target_mask, target_mask = None, None
 
     if lc.train_seq2seq:
-        mel_l1, mel_bd = losses.spec_loss(
-            mel_outputs[:, :-r, :], mel[:, r:, :], decoder_target_mask,
-            masked_loss_weight=lc.masked_loss_weight,
-            binary_divergence_weight=lc.binary_divergence_weight)
+        with losses.global_frames(mel_frames):
+            mel_l1, mel_bd = losses.spec_loss(
+                mel_outputs[:, :mel_t.shape[1]], mel_t, decoder_target_mask,
+                masked_loss_weight=lc.masked_loss_weight,
+                binary_divergence_weight=lc.binary_divergence_weight)
         mel_loss = (1 - w) * mel_l1 + w * mel_bd
-        done_loss = losses.bce_loss(done_hat, batch["done"])
+        if sp is None:
+            t_start, n_dec = 0, done_hat.shape[1]
+        else:
+            _, t_start, n_dec = sp.blocks(done_hat.shape[1])
+        with losses.global_frames(n_dec):
+            done_loss = losses.bce_loss(done_hat, batch["done"])
         loss = loss + mel_loss + done_loss
         metrics.update(mel_l1_loss=mel_l1, mel_binary_div_loss=mel_bd,
                        mel_loss=mel_loss, done_loss=done_loss)
         if lc.use_guided_attention:
-            attn_loss = losses.guided_attention_loss(
-                attn, batch["input_lengths"], decoder_lengths,
-                g=lc.guided_attention_sigma)
+            with losses.global_frames(n_dec):
+                attn_loss = losses.guided_attention_loss(
+                    attn, batch["input_lengths"], decoder_lengths,
+                    g=lc.guided_attention_sigma, t_start=t_start)
             loss = loss + attn_loss
             metrics["attn_loss"] = attn_loss
 
     if lc.train_postnet:
-        lin_l1, lin_bd = losses.spec_loss(
-            linear_outputs[:, :-r, :], y[:, r:, :], target_mask,
-            masked_loss_weight=lc.masked_loss_weight,
-            binary_divergence_weight=lc.binary_divergence_weight,
-            priority_bin=lc.priority_bin,
-            priority_w=lc.priority_freq_weight)
+        with losses.global_frames(lin_frames):
+            lin_l1, lin_bd = losses.spec_loss(
+                linear_outputs[:, :y_t.shape[1]], y_t, target_mask,
+                masked_loss_weight=lc.masked_loss_weight,
+                binary_divergence_weight=lc.binary_divergence_weight,
+                priority_bin=lc.priority_bin,
+                priority_w=lc.priority_freq_weight)
         linear_loss = (1 - w) * lin_l1 + w * lin_bd
         loss = loss + linear_loss
         metrics.update(linear_l1_loss=lin_l1, linear_binary_div_loss=lin_bd,
@@ -278,7 +315,7 @@ def compute_losses(outputs, batch, lc: LossConfig):
 
 def make_train_step(cfg: TTSModelConfig, lc: LossConfig, optimizer, mask,
                     compute_dtype=torch.float32, conv_mode="kernel",
-                    mesh=None):
+                    mesh=None, seq_sharding=None):
     """Build the train step: `step(state, batch, generator) -> (state,
     metrics)`.
 
@@ -299,18 +336,29 @@ def make_train_step(cfg: TTSModelConfig, lc: LossConfig, optimizer, mask,
     mesh: a parallel.mesh DeviceMesh; batch is then this rank's rows of the
     global batch (mesh.shard_batch), the parameters those `shard_params`
     placed, and the metrics are the global batch's. Without it the step
-    makes no collective."""
+    makes no collective.
+
+    seq_sharding (mesh.seq_sharding(mesh), with a mesh) turns on sequence
+    parallelism, as the JAX step's argument: batch is this rank's block of
+    frames as well (mesh.shard_batch(sp=True)), the forward runs inside
+    core.sequence_parallel (halo exchanges around every kw > 1 conv, still
+    through B3 in kernel mode) on whole weights, the tp-sliced leaves
+    gathered over "model" first, and the gradients and metrics, which hold
+    only this rank's frames, are summed over the whole mesh before each
+    rank keeps its blocks of the sliced leaves' gradients."""
     compute_dtype = getattr(torch, compute_dtype) \
         if isinstance(compute_dtype, str) else compute_dtype
     if conv_mode not in core.CONV_MODES:
         raise ValueError("conv_mode must be one of %s" % (core.CONV_MODES,))
+    if seq_sharding is not None and mesh is None:
+        raise ValueError("seq_sharding needs the mesh")
     cast = compute_dtype != torch.float32
 
-    def loss_fn(leaves, batch, generator, sliced):
+    def loss_fn(leaves, batch, generator, sliced, sp):
         tree = {k: v.to(compute_dtype) if cast and v.dtype == torch.float32
                 else v for k, v in leaves.items()}
         with tp_block([tree[k] for k in sliced]):
-            return forward_losses(nest(tree), batch, generator)
+            return forward_losses(nest(tree), batch, generator, sp)
 
     def tp_block(sharded):
         if not sharded:
@@ -318,27 +366,28 @@ def make_train_step(cfg: TTSModelConfig, lc: LossConfig, optimizer, mask,
         return core.tensor_parallel(
             mesh_lib.axis_group(mesh, mesh_lib.MODEL_AXIS), sharded)
 
-    def forward_losses(params, batch, generator):
+    def forward_losses(params, batch, generator, sp):
         mel_in = batch["mel"].to(compute_dtype) if cast else batch["mel"]
-        if lc.train_seq2seq:
-            outputs = model_forward(
-                params, cfg, batch["x"], mel_in,
-                speaker_ids=batch.get("speaker_ids"),
-                text_positions=batch["text_positions"],
-                frame_positions=batch["frame_positions"],
-                input_lengths=batch["input_lengths"],
-                training=True, generator=generator)
-            if not lc.train_postnet:
-                outputs = (outputs[0], None, outputs[2], outputs[3])
-        else:
-            linear = cfg.family.converter_apply(
-                params["converter"], cfg.converter, mel_in, training=True,
-                generator=generator)
-            outputs = (None, linear, None, None)
+        with sp or contextlib.nullcontext():
+            if lc.train_seq2seq:
+                outputs = model_forward(
+                    params, cfg, batch["x"], mel_in,
+                    speaker_ids=batch.get("speaker_ids"),
+                    text_positions=batch["text_positions"],
+                    frame_positions=batch["frame_positions"],
+                    input_lengths=batch["input_lengths"],
+                    training=True, generator=generator)
+                if not lc.train_postnet:
+                    outputs = (outputs[0], None, outputs[2], outputs[3])
+            else:
+                linear = cfg.family.converter_apply(
+                    params["converter"], cfg.converter, mel_in,
+                    training=True, generator=generator)
+                outputs = (None, linear, None, None)
         if cast:
             outputs = tuple(None if o is None else o.float()
                             for o in outputs)
-        return compute_losses(outputs, batch, lc)
+        return compute_losses(outputs, batch, lc, sp)
 
     def train_step(state: TrainState, batch, generator):
         leaves = dict(state.params.named_parameters())
@@ -347,17 +396,35 @@ def make_train_step(cfg: TTSModelConfig, lc: LossConfig, optimizer, mask,
         layout = mesh_lib.layout_of(state.params) if mesh is not None \
             else None
         sliced = layout.axes if layout is not None else {}
-        with core.conv_mode(conv_mode), losses.data_shard(mesh):
-            loss, metrics = loss_fn(leaves, batch, generator, sliced)
+        sp = None
+        if seq_sharding is not None:
+            sp = core.sequence_parallel(
+                mesh_lib.axis_group(mesh, mesh_lib.MODEL_AXIS),
+                batch[mesh_lib.FRAME_GROUPS])
+            if sliced:        # whole weights for the forward (ZeRO-3 style)
+                whole = mesh_lib.gather_sliced(mesh, leaves, layout)
+                leaves = dict(leaves, **{
+                    k: v.requires_grad_(leaves[k].requires_grad)
+                    for k, v in whole.items()})
+        with core.conv_mode(conv_mode), \
+                losses.data_shard(mesh, sp=sp is not None):
+            loss, metrics = loss_fn(leaves, batch, generator,
+                                    {} if sp is not None else sliced, sp)
         grads = torch.autograd.grad(loss, [leaves[k] for k in trained],
                                     allow_unused=True)
         grads = {k: g for k, g in zip(trained, grads) if g is not None}
         metrics = {k: v.detach() for k, v in metrics.items()}
         if mesh is not None:
-            # one flat all-reduce over "data": the gradients, and the
-            # metrics (each rank's share of the global batch's value)
+            # one flat all-reduce over "data" (the whole mesh under sp):
+            # the gradients, and the metrics (each rank's share of the
+            # global batch's value)
             mesh_lib.reduce_over_data(mesh, list(grads.values()) + [
-                v.reshape(1) for v in metrics.values()])
+                v.reshape(1) for v in metrics.values()],
+                whole_mesh=sp is not None)
+        if sp is not None and sliced:
+            grads = {k: mesh_lib.own_block(layout, k, g).contiguous()
+                     for k, g in grads.items()}
+            leaves = dict(state.params.named_parameters())
         norm_fn = None
         if sliced:
             def norm_fn(names, tensors):
@@ -387,9 +454,12 @@ def init_train_state(params, optimizer):
 
 def batch_to(batch, device):
     """numpy batch (collate's output) -> tensors on `device`: ints as int64,
-    floats as f32."""
+    floats as f32; a sp batch's `frame_groups` stays a tuple on the host."""
     out = {}
     for k, v in batch.items():
+        if k == mesh_lib.FRAME_GROUPS:
+            out[k] = tuple(v)
+            continue
         t = torch.as_tensor(v)
         t = t.long() if not t.is_floating_point() else t.float()
         out[k] = t.to(device)

@@ -3,14 +3,16 @@
 (torchrun) starts two CPU ranks over gloo (--device cpu) on the tiny corpus
 of tests/test_torch_cli.py.
 
-  * cli.train --mesh-model 2 (tensor parallelism over both ranks) four
-    steps, checkpoints at steps 2 and 4 and an eval at step 4: rank 0 alone
-    prints, writes the files and synthesises the eval sentences; JAX's
+  * cli.train --mesh-model 2 (tensor parallelism of the weights and
+    sequence parallelism of the frames over both ranks, as the JAX
+    train.py runs that flag) four steps, checkpoints at steps 2 and 4 and
+    an eval at step 4: rank 0 alone prints, writes the files and
+    synthesises the eval sentences; the step exchanged halos; JAX's
     load_checkpoint takes its file;
   * its step-2 file resumed under the same mesh gives the step-4 file of
     the uninterrupted run byte for byte; resumed in one process, the
     losses of steps 3 and 4 within 1e-6 relative and every parameter within
-    2e-6 (tensor parallelism sums the input gradients in another order:
+    2e-6 (the blocks sum the gradients in another order:
     tests/test_multichip.py's bar);
   * cli.synthesis --data-parallel on two ranks writes the wav files of the
     one-process run at the waveform bar of tests/test_multichip.py (5e-2 of
@@ -102,11 +104,14 @@ def runs(corpus, tmp_path_factory):
 def test_tp_train_writes_on_rank_zero_alone(runs):
     out, log = runs["out"], runs["log"]
     assert log.count("Mesh: data=1, model=2 over 2 process(es), gloo") == 1
+    assert log.count("Sequence parallelism: frames over the 2 model "
+                     "ranks") == 1
     assert log.count("Saved final checkpoint at step 4") == 1
     assert log.count("step 1 | loss") == 1
     summary = json.loads((out / "mesh.json").read_text())
     assert len(summary["losses"]) == 4 and np.isfinite(
         summary["losses"]).all()
+    assert summary["collectives"]["halo"] > 0
     assert sorted(os.listdir(out / "mesh" / "eval")) == sorted(
         "step000000004_eval_%d_single.wav" % i for i in range(6))
     ckpts = sorted(f for f in os.listdir(out / "mesh") if f.endswith(

@@ -51,7 +51,8 @@ CFG = dict(n_vocab=149, embed_dim=64, encoder_channels=32,
            dropout=0.0, max_positions=128)
 
 
-def batch(seed=0, B=8, T_text=16, T_dec=8, r=4, ragged=False):
+def batch(seed=0, B=8, T_text=16, T_dec=8, r=4, ragged=False, mel_dim=80,
+          linear_dim=129, downsample_step=1):
     """tests/test_training._tiny_batch from `seed`. ragged: frame and text
     lengths that differ row by row; the decoder-domain mask (valid length
     target_lengths // r, from frame r on) then holds 15 frames in the first
@@ -60,14 +61,16 @@ def batch(seed=0, B=8, T_text=16, T_dec=8, r=4, ragged=False):
     b = {
         "x": rs.randint(1, 149, (B, T_text)).astype(np.int32),
         "input_lengths": np.full((B,), T_text, np.int32),
-        "mel": rs.rand(B, T_dec * r, 80).astype(np.float32),
-        "y": rs.rand(B, T_dec * r, 129).astype(np.float32),
+        "mel": rs.rand(B, T_dec * r, mel_dim).astype(np.float32),
+        "y": rs.rand(B, T_dec * r * downsample_step,
+                     linear_dim).astype(np.float32),
         "text_positions": np.tile(np.arange(1, T_text + 1),
                                   (B, 1)).astype(np.int32),
         "frame_positions": np.tile(np.arange(1, T_dec + 1),
                                    (B, 1)).astype(np.int32),
         "done": np.ones((B, T_dec, 1), np.float32),
-        "target_lengths": np.full((B,), T_dec * r, np.int32),
+        "target_lengths": np.full((B,), T_dec * r * downsample_step,
+                                  np.int32),
     }
     if ragged:
         frames = np.asarray([32, 32, 28, 32, 20, 24, 28, 20], np.int32)
@@ -102,9 +105,10 @@ def full_params(mesh, params):
 
 
 def train(spec, mesh, device, batches, hp=None, tp=False, params=None,
-          state=None):
+          state=None, sp=False):
     """Steps of the port's train step, one per batch (global batches,
-    sharded on a mesh). Returns (state, metrics per step)."""
+    sharded on a mesh; sp: frames over "model" too). Returns (state,
+    metrics per step)."""
     hp = types.SimpleNamespace(**(hp or spec["hp"]))
     cfg = getattr(tb, spec["builder"])(**spec["cfg"])
     opt = tt.make_optimizer(hp, tt.make_lr_fn(hp))
@@ -115,13 +119,15 @@ def train(spec, mesh, device, batches, hp=None, tp=False, params=None,
             mesh_lib.shard_params(params, mesh, tp=tp, cfg=cfg)
         state = tt.init_train_state(params, opt)
     mask = tt.trainable_mask(state.params, cfg)
-    step = tt.make_train_step(cfg, tt.loss_config_from_hparams(hp), opt, mask,
-                              mesh=mesh)
+    sp = sp and mesh is not None
+    step = tt.make_train_step(
+        cfg, tt.loss_config_from_hparams(hp), opt, mask, mesh=mesh,
+        seq_sharding=mesh_lib.seq_sharding(mesh) if sp else None)
     gen = torch.Generator(device=device).manual_seed(0)
     metrics = []
     for b in batches:
         if mesh is not None:
-            b = mesh_lib.shard_batch(mesh, b)
+            b = mesh_lib.shard_batch(mesh, b, sp=sp)
         state, m = step(state, tt.batch_to(b, device), gen)
         metrics.append({k: float(v) for k, v in m.items()})
     return state, metrics
@@ -242,12 +248,100 @@ def body_ckpt(spec, mesh, device):
             "resumed": full_params(mesh, resumed.params)}
 
 
+def body_sp_step(spec, mesh, device):
+    """One dp x sp step (tp slices for storage) on the first batch."""
+    state, metrics = train(spec, mesh, device, spec["batches"][:1], tp=True,
+                           sp=True)
+    return {"params": full_params(mesh, state.params), "metrics": metrics,
+            "b3": dict(conv_cuda.KERNEL.by_entry)}
+
+
+def body_sp_ragged(spec, mesh, device):
+    """One sp step on a batch of T_dec = 7 (decoder blocks of 4 and 3)."""
+    state, metrics = train(spec, mesh, device, spec["sp_ragged"], tp=True,
+                           sp=True)
+    return {"params": full_params(mesh, state.params), "metrics": metrics}
+
+
+def body_sp_builders(spec, mesh, device):
+    """One sp step of each of spec["sp_builders"] (name -> its config,
+    parameters, hparams and batch)."""
+    out = {}
+    for name, c in spec["sp_builders"].items():
+        sub = dict(spec, builder=name, cfg=c["cfg"], params=c["params"],
+                   hp=c["hp"])
+        state, metrics = train(sub, mesh, device, [c["batch"]], tp=True,
+                               sp=True)
+        out[name] = {"params": full_params(mesh, state.params),
+                     "metrics": metrics}
+    return out
+
+
+def body_sp_dropout(spec, mesh, device):
+    """Two sp steps at the spec's dropout (`dropout_cfg`): each block draws
+    its frames of the whole sequence's mask."""
+    state, metrics = train(dict(spec, cfg=spec["dropout_cfg"]), mesh, device,
+                           spec["batches"][:2], tp=True, sp=True)
+    return {"params": full_params(mesh, state.params), "metrics": metrics}
+
+
+def halo_conv_run(spec, mesh, device):
+    """conv1d_apply of each of spec["halo_convs"] (kw, dilation, causal) on
+    the whole x of spec["halo_x"] (mesh None) or on this rank's block of its
+    `halo_groups` inside sequence_parallel: the outputs and the gradients of
+    x and of the weights against the cotangent spec["halo_dy"]."""
+    x_all = torch.as_tensor(spec["halo_x"]).to(device)
+    dy_all = torch.as_tensor(spec["halo_dy"]).to(device)
+    groups = spec["halo_groups"]
+    ctx, rows = contextlib.nullcontext(), slice(None)
+    if mesh is not None:
+        m = mesh_lib.axis_rank(mesh, mesh_lib.MODEL_AXIS)
+        per = x_all.shape[1] // sum(groups)
+        rows = slice(sum(groups[:m]) * per, sum(groups[:m + 1]) * per)
+        ctx = core.sequence_parallel(
+            mesh_lib.axis_group(mesh, mesh_lib.MODEL_AXIS), groups)
+    out = []
+    for i, (kw, dil, causal) in enumerate(spec["halo_convs"]):
+        p = {k: torch.as_tensor(v).to(device).requires_grad_(True)
+             for k, v in spec["halo_params"][i].items()}
+        x = x_all[:, rows].clone().requires_grad_(True)
+        with ctx, core.conv_mode("kernel"):
+            y = core.conv1d_apply(p, x, dilation=dil, causal=causal)
+        y.backward(dy_all[:, rows])
+        grads = {k: host(v.grad) for k, v in p.items()}
+        if mesh is not None:   # the weights' shares over the ranks
+            for k, v in p.items():
+                mesh_lib.all_reduce(v.grad, mesh_lib.axis_group(
+                    mesh, mesh_lib.MODEL_AXIS))
+                grads[k] = host(v.grad)
+        out.append({"y": host(y), "dx": host(x.grad), "grads": grads,
+                    "rows": (rows.start, rows.stop)})
+    return out
+
+
+def body_halo_conv(spec, mesh, device):
+    mesh_lib.reset_counts()
+    res = halo_conv_run(spec, mesh, device)
+    return {"convs": res, "collectives": dict(mesh_lib.COUNTS)}
+
+
+def body_sp4_step(spec, mesh, device):
+    """One sp step over four model ranks (decoder blocks of 2 groups; the
+    decoder's dilation-27 conv reaches 108 groups back)."""
+    state, metrics = train(spec, mesh, device, spec["batches"][:1], tp=True,
+                           sp=True)
+    return {"params": full_params(mesh, state.params), "metrics": metrics}
+
+
 SESSIONS = {
     "dp": (2, 1, ("dp_train", "ragged", "tts", "tts_speakers")),
     "tp": (1, 2, ("tp_forward", "tp_builders", "clip")),
     "dptp": (2, 2, ("dptp_step", "ckpt")),
     "tp_cuda": (1, 2, ("tp_forward",)),
     "dptp_nccl": (2, 2, ("dptp_step", "ckpt")),
+    "sp": (2, 2, ("sp_step", "sp_ragged", "sp_builders")),
+    "sp4": (1, 4, ("halo_conv", "sp4_step", "sp_dropout")),
+    "sp_nccl": (1, 2, ("sp_step",)),
 }
 
 
