@@ -220,11 +220,30 @@ Phases, one line each; any failure exits non-zero before the result lines:
      (the decoder's dilation-27 conv on 64 + 54 frames must be among
      them), then B3 at the four sp = 2 shapes (a block and its halo)
      against its plain version and float64. A mismatch, a rank that dies
-     or a collective that raises fails the smoke. The smoke's whole time
-     is printed before the result lines.
+     or a collective that raises fails the smoke;
+ 19. teacher-forced decode (phase `teacher_forced`): the LJSpeech preset
+     at full width with monotonic attention off, B = 8, 96 text
+     positions, 100 decoder frames of seeded teacher frames:
+     builder.model_decode(test_inputs=) through B1, one frame a launch
+     (fails unless B1 launched exactly once a frame, on its persistent
+     route), against B1's plain version on the card and against the
+     offline forward (the encoder and decoder_apply, and model_forward,
+     under conv_mode("kernel"), which launches B3): outputs, decoder
+     states and done within 3x the plain f32 version's drift from a
+     float64 decode (of the same encoder outputs against the plain
+     version; of the whole model in float64 against the offline forward,
+     whose encoder runs apart) + 1e-6; model_synthesize(test_inputs=)
+     equal to model_decode and its linear frames within 1e-4 of
+     model_forward's; ms of each part, B1's ms a frame and its bound;
+     then model_synthesize at B = 8 for each builder's preset (LJSpeech,
+     nyanko, VCTK), teacher-forced and free-running: shapes, finite
+     values, B1 launches one a frame and one a chunk. The smoke's whole
+     time is printed before the result lines.
 The line before the last is the kernels' JSON record (B1's launches
-summed over the three builders' main paths and the serving paths, its
-worst error over the four B1 phases; its times are the LJSpeech phase's;
+summed over the three builders' main paths, the serving paths and phase
+teacher_forced, its worst error over the four B1 phases and that phase;
+its times are the LJSpeech phase's, and `teacher_forced` holds the
+teacher-forced route's launches, ms, ms a frame and bound;
 `fused_decode_slots` is the serving mode alone: its launches on the
 serving paths, B1_serve's error and times; `griffin_lim_stream` counts
 its launches on the stream and serving paths; every launch count adds
@@ -283,6 +302,10 @@ in the same turns; nothing else runs.
 
 builds the kernels and runs phase mesh (18) alone; it starts this script
 twice more as `--mesh-rank RANK 2 WORK`, the ranks of (b) and (c).
+
+    python3 chip_smoke.py --teacher-forced-only
+
+builds the kernels and runs phase teacher_forced (19) alone.
 """
 
 import collections
@@ -376,6 +399,10 @@ def device_ms(fn, torch, reps=5, host_lead_ms=30.0):
 
 def maxabs(a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+def maxabs64(a, b):
+    return float((a.double() - b.double()).abs().max())
 
 
 def plain_cpu_first_hop(torch, S, win, kw, want):
@@ -5184,6 +5211,273 @@ def mesh_phase(torch, pkg, hp, dev, seed, card, repo, extra_hp=""):
     return ok, rows, launches
 
 
+TF_B, TF_TEXT, TF_GROUPS = 8, 96, 100   # phase teacher_forced's shape
+TF_BUILDERS = (("deepvoice3", "deepvoice3_ljspeech"),
+               ("nyanko", "nyanko_ljspeech"),
+               ("deepvoice3_multispeaker", "deepvoice3_vctk"))
+
+
+def tf_inputs(torch, cfg, dev, seed, B=TF_B, T_text=TF_TEXT,
+              groups=TF_GROUPS):
+    """Seeded text of B rows (lengths 60..T_text, padded with 0 and position
+    0), positions, lengths, speakers (7 i) % n_speakers for a multi-speaker
+    model, and (B, groups, mel * r) teacher frames in [0, 1)."""
+    g = torch.Generator().manual_seed(seed + 2)
+    lengths = torch.randint(min(60, T_text), T_text + 1, (B,), generator=g)
+    lengths[0] = T_text
+    x = torch.randint(1, 149, (B, T_text), generator=g)
+    pos = torch.arange(1, T_text + 1)[None, :].repeat(B, 1)
+    valid = pos <= lengths[:, None]
+    x, pos = x * valid, pos * valid
+    frames = torch.rand(B, groups, cfg.mel_dim * cfg.decoder.r, generator=g)
+    spk = batch_speakers(cfg, B)
+    return dict(x=x.to(dev), pos=pos.to(dev), lengths=lengths.to(dev),
+                frames=frames.to(dev),
+                spk=None if spk is None else torch.tensor(spk, device=dev))
+
+
+def teacher_forced_phase(torch, pkg, repo, dev, seed, card, extra_hp="",
+                         groups=TF_GROUPS):
+    """Phase teacher_forced: the LJSpeech preset at full width, monotonic
+    attention off (the offline forward has no windows), B = TF_B rows of
+    TF_TEXT text positions and `groups` decoder frames of seeded teacher
+    frames: (1) builder.model_decode(test_inputs=) through kernel B1, one
+    frame a launch; (2) the same decode by B1's plain version on the card;
+    (3) the offline forward (the encoder and the decoder's decoder_apply,
+    and model_forward) under conv_mode("kernel"), which launches B3 and
+    must leave no conv to the library. The floors: the plain f32 decode's
+    drift from a float64 decode of (1)'s encoder outputs, and from the
+    whole model in float64 (for (3), whose encoder runs apart). Bars:
+    outputs, decoder states and done of (1) within 3x the floor + 1e-6 of
+    (2) and of (3) (B1's bar), alignments reported;
+    model_synthesize(test_inputs=) equal to (1) and its linear frames
+    within 1e-4 of model_forward's.
+    Then model_synthesize at B = TF_B for each builder's preset, teacher-
+    forced and free-running (early exit, `groups` frames at most): finite
+    outputs of the expected shapes, B1 launches one a frame and one a
+    chunk. Returns (ok, row, B1 launches of the phase's main-path runs)."""
+    from deepvoice3_pytorch_tpu_torch import builder
+    from deepvoice3_pytorch_tpu_torch.ops import conv_cuda, core
+    from deepvoice3_pytorch_tpu_torch.ops import fused_decode as fd
+
+    hparams, en = pkg["hparams"], pkg["en"]
+    hp = ljspeech_hparams(hparams, repo)
+    hp.parse(",".join(s for s in (extra_hp, "force_monotonic_attention=false")
+                      if s))
+    cfg, params = pkg["model_builder"].build_model(hp, en.n_vocab, seed=seed,
+                                                   device=dev)
+    fam, dc, T = cfg.family, cfg.decoder, groups
+    x = tf_inputs(torch, cfg, dev, seed, groups=groups)
+    B = x["x"].shape[0]
+    kw = dict(input_lengths=x["lengths"], test_inputs=x["frames"])
+    row, ok, launches = {"card": card}, True, 0
+
+    def decode():
+        return builder.model_decode(params, cfg, x["x"], x["pos"], **kw)
+
+    fd.KERNEL.reset_counts()
+    mel, states, align, done, lens = decode()
+    torch.cuda.synchronize()
+    launches += fd.KERNEL.launches
+    row["launches"] = {"by_entry": dict(fd.KERNEL.by_entry),
+                       "by_route": dict(fd.KERNEL.by_route)}
+    if dev.type == "cuda" and (fd.KERNEL.by_entry != {"chunk": T}
+                               or fd.KERNEL.by_route != {"persistent": T}):
+        ok = False
+        phase("teacher_forced", "B1 was not launched one frame a launch: "
+              "%s" % json.dumps(row["launches"]))
+
+    # (2) B1's plain version on the card, and the float64 floor
+    enc = fam.encoder_apply(params["encoder"], cfg.encoder, x["x"])
+    mask = core.get_mask_from_lengths(x["lengths"], x["x"].shape[1])
+
+    def plain(pd, enc, frames):
+        fi = fam.fused_decode_inputs(pd, dc, enc, x["pos"], T)
+        return fd.fused_decode_plain(pd, dc, fi, mask, None, T,
+                                     dc.min_decoder_steps,
+                                     test_inputs=frames)
+
+    want = plain(params["decoder"], enc, x["frames"])
+    pd64 = copy.deepcopy(params["decoder"]).double()
+    exact = plain(pd64, tuple(e.double() for e in enc), x["frames"].double())
+    # the whole model in float64, the floor of (3), whose encoder runs apart
+    enc64 = fam.encoder_apply(copy.deepcopy(params["encoder"]).double(),
+                              cfg.encoder, x["x"])
+    exact_model = plain(pd64, enc64, x["frames"].double())
+    torch.cuda.synchronize()
+
+    def grouped(out):
+        """(outputs, decoder states, done, alignments) of a decode at
+        model_decode's shapes."""
+        return (out.outputs.reshape(B, -1, cfg.mel_dim),
+                out.decoder_states.reshape(B, states.shape[1], -1),
+                out.done, out.alignments)
+
+    names = ("outputs", "decoder_states", "done", "alignments")
+    got = (mel, states, done, align)
+    floor = {n: maxabs64(a, b) for n, a, b in zip(
+        names, grouped(want), grouped(exact))}
+    floor_model = {n: maxabs64(a, b) for n, a, b in zip(
+        names, grouped(want), grouped(exact_model))}
+    row["floor"], row["floor_model"] = floor, floor_model
+    row["vs_plain"] = {n: maxabs64(a, b)
+                       for n, a, b in zip(names, got, grouped(want))}
+    row["vs_float64"] = {n: maxabs64(a, b)
+                         for n, a, b in zip(names, got, grouped(exact))}
+
+    # (3) the offline forward through B3
+    fpos = torch.arange(1, T + 1, device=dev)[None, :].repeat(B, 1)
+    mel_targets = x["frames"].reshape(B, -1, cfg.mel_dim)
+    conv_cuda.KERNEL.reset_counts()
+    conv_cuda.LIBRARY_CALLS.clear()
+    with core.conv_mode("kernel"):
+        enc_k = fam.encoder_apply(params["encoder"], cfg.encoder, x["x"])
+        off = fam.decoder_apply(params["decoder"], dc, enc_k, mel_targets,
+                                text_positions=x["pos"],
+                                frame_positions=fpos,
+                                lengths=x["lengths"])
+        fwd = builder.model_forward(params, cfg, x["x"], mel_targets,
+                                    text_positions=x["pos"],
+                                    frame_positions=fpos,
+                                    input_lengths=x["lengths"])
+    torch.cuda.synchronize()
+    row["b3_launches"] = dict(conv_cuda.KERNEL.by_entry)
+    row["b3_library_calls"] = dict(conv_cuda.LIBRARY_CALLS)
+    if row["b3_library_calls"] or (dev.type == "cuda"
+                                   and conv_cuda.KERNEL.launches <= 0):
+        ok = False
+        phase("teacher_forced", "the offline forward launched no B3, or "
+              "a conv left it for the library: %s"
+              % json.dumps(row["b3_library_calls"]))
+    off_g = (off[0].reshape(B, -1, cfg.mel_dim),
+             off[3].reshape(B, states.shape[1], -1), off[2][..., 0],
+             off[1].mean(0))
+    row["vs_forward"] = {n: maxabs64(a, b)
+                         for n, a, b in zip(names, got, off_g)}
+    row["vs_model_forward"] = {"mel": maxabs64(mel, fwd[0]),
+                               "done": maxabs64(done, fwd[3][..., 0])}
+    held = names[:3]
+    row["ok_plain"] = all(row["vs_plain"][n] <= 3 * floor[n] + 1e-6
+                          for n in held)
+    row["ok_forward"] = all(
+        row["vs_forward"][n] <= 3 * floor_model[n] + 1e-6
+        for n in held) and all(
+        v <= 3 * floor_model[n] + 1e-6
+        for n, v in zip(("outputs", "done"),
+                        row["vs_model_forward"].values()))
+    ok &= row["ok_plain"] and row["ok_forward"]
+
+    # model_synthesize, teacher-forced: (1) plus the converter
+    fd.KERNEL.reset_counts()
+    syn = builder.model_synthesize(params, cfg, x["x"], x["pos"], **kw)
+    torch.cuda.synchronize()
+    launches += fd.KERNEL.launches
+    row["synthesize_vs_decode"] = max(maxabs64(syn[0], mel),
+                                      maxabs64(syn[3], done))
+    row["linear_vs_model_forward"] = maxabs64(syn[1], fwd[1])
+    ok &= (row["synthesize_vs_decode"] == 0.0
+           and row["linear_vs_model_forward"] <= 1e-4
+           and (dev.type != "cuda" or fd.KERNEL.launches == T))
+    row["lengths"] = lens.tolist()
+
+    # times: the decode's parts (host-paced, events around the calls)
+    def offline():
+        with core.conv_mode("kernel"):
+            return builder.model_forward(params, cfg, x["x"], mel_targets,
+                                         text_positions=x["pos"],
+                                         frame_positions=fpos,
+                                         input_lengths=x["lengths"])
+
+    row["ms"] = {
+        "model_decode_b1": cuda_ms(decode, torch),
+        "model_synthesize_b1": cuda_ms(lambda: builder.model_synthesize(
+            params, cfg, x["x"], x["pos"], **kw), torch),
+        "plain_decode": cuda_ms(lambda: plain(params["decoder"], enc,
+                                              x["frames"]), torch),
+        "model_forward_b3": cuda_ms(offline, torch),
+        "encoder": cuda_ms(lambda: fam.encoder_apply(
+            params["encoder"], cfg.encoder, x["x"]), torch)}
+    row["ms"]["b1_per_frame"] = (row["ms"]["model_decode_b1"]
+                                 - row["ms"]["encoder"]) / T
+    row["bound"] = b1_bound_ms(torch, pkg, hp, dev, seed, B=B,
+                               Tk=x["x"].shape[1], steps=T)
+    phase("teacher_forced", "LJSpeech preset, monotonic attention off, B=%d "
+          "Tk=%d, %d teacher-forced frames: B1 launches %s; B3 launches in "
+          "the offline forward %s (calls left to the library %s); max abs "
+          "err vs B1's plain version %s, vs "
+          "the offline forward (decoder_apply) %s, vs model_forward %s; "
+          "plain-vs-float64 floor %s (the decode of the same encoder "
+          "outputs), %s (the whole model in float64: the floor of the "
+          "offline forward, whose encoder runs apart), kernel-vs-float64 "
+          "%s (bar: outputs, decoder states and done within 3x the floor + "
+          "1e-6; alignments reported); model_synthesize vs model_decode "
+          "%s, its linear vs model_forward's %s (bar 1e-4); lengths %s; "
+          "ms %s; B1 bound for the %d frames %.4f ms (%s) (%s)" % (
+              B, x["x"].shape[1], T, json.dumps(row["launches"]),
+              json.dumps(row["b3_launches"]),
+              json.dumps(row["b3_library_calls"]),
+              json.dumps(row["vs_plain"]), json.dumps(row["vs_forward"]),
+              json.dumps(row["vs_model_forward"]), json.dumps(floor),
+              json.dumps(floor_model), json.dumps(row["vs_float64"]),
+              row["synthesize_vs_decode"],
+              row["linear_vs_model_forward"], row["lengths"],
+              json.dumps(row["ms"]), T, row["bound"][0], row["bound"][1],
+              card))
+
+    # model_synthesize at B = TF_B for each builder's preset
+    row["builders"] = {}
+    for bname, preset in TF_BUILDERS:
+        hp_b = preset_hparams(hparams, repo, preset)
+        if extra_hp:
+            hp_b.parse(extra_hp)
+        cfg_b, params_b = pkg["model_builder"].build_model(
+            hp_b, en.n_vocab, seed=seed, device=dev)
+        xb = tf_inputs(torch, cfg_b, dev, seed, groups=groups)
+        r = {}
+        for mode, extra in (("teacher_forced", dict(test_inputs=xb["frames"])),
+                            ("free_running", dict(max_decoder_steps=groups,
+                                                  early_exit=True))):
+            def synth():
+                return builder.model_synthesize(
+                    params_b, cfg_b, xb["x"], xb["pos"],
+                    speaker_ids=xb["spk"], input_lengths=xb["lengths"],
+                    **extra)
+
+            synth()                                     # warm-up
+            torch.cuda.synchronize()
+            fd.KERNEL.reset_counts()
+            t0 = time.time()
+            out = synth()
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) * 1e3
+            n = fd.KERNEL.launches
+            launches += n
+            steps = out[3].shape[1]
+            shapes_ok = (
+                out[0].shape == (TF_B, steps * cfg_b.decoder.r,
+                                 cfg_b.mel_dim)
+                and out[1].shape[0] == TF_B
+                and out[1].shape[2] == cfg_b.linear_dim
+                and steps == groups
+                and all(bool(torch.isfinite(o).all()) for o in out[:4]))
+            # one launch a frame; free-running, one a chunk until every row
+            # is done
+            launch_ok = dev.type != "cuda" or (
+                n == groups if mode == "teacher_forced" else
+                1 <= n <= -(-groups // min(fd.DEFAULT_CHUNK, groups)))
+            r[mode] = {"wall_ms": wall, "b1_launches": n, "frames": steps,
+                       "linear_shape": list(out[1].shape),
+                       "lengths_min_max": [int(out[4].min()),
+                                           int(out[4].max())],
+                       "ok": shapes_ok and launch_ok}
+            ok &= r[mode]["ok"]
+        row["builders"][bname] = r
+        phase("teacher_forced", "%s (%s) model_synthesize B=%d: %s (%s)"
+              % (bname, preset, TF_B, json.dumps(r), card))
+    row["b1_launches"] = launches
+    return ok, row, launches
+
+
 def main():
     import argparse
 
@@ -5222,6 +5516,9 @@ def main():
     ap.add_argument("--mesh-rank", nargs=3, default=None,
                     metavar=("RANK", "WORLD", "WORK"),
                     help="run as a rank of phase mesh's two processes")
+    ap.add_argument("--teacher-forced-only", action="store_true",
+                    help="only build the kernels and run phase "
+                         "teacher_forced")
     ap.add_argument("--dsp-only", action="store_true",
                     help="only build the kernels and run the DSP and "
                          "preprocessing phases (B2_center, B2_shapes, "
@@ -5342,6 +5639,19 @@ def main():
             phase("total", "the smoke took %.1f s" % (time.time() - t_smoke))
             if not dsp_ok:
                 fail("a DSP or preprocessing phase missed its bar")
+            return
+        if args.teacher_forced_only:
+            tf_ok, tf_row, _ = teacher_forced_phase(torch, pkg, repo, dev,
+                                                    seed, card)
+            if json_out:
+                os.makedirs(os.path.dirname(os.path.abspath(json_out)),
+                            exist_ok=True)
+                with open(json_out, "w") as f:
+                    json.dump({"card": card, "teacher_forced": tf_row}, f,
+                              indent=1, default=str)
+            phase("total", "the smoke took %.1f s" % (time.time() - t_smoke))
+            if not tf_ok:
+                fail("phase teacher_forced missed a bar")
             return
         if args.mesh_only:
             mesh_ok, mesh_rows, mesh_l = mesh_phase(torch, pkg, hp, dev,
@@ -5642,6 +5952,12 @@ def main():
                 k.endswith("_simple") for k in mesh_b3):
             fail("a kernel of the mesh paths was not launched, or B3 took "
                  "its ragged route: %s" % json.dumps(mesh_l))
+        tf_ok, tf_row, tf_launches = teacher_forced_phase(
+            torch, pkg, repo, dev, seed, card)
+        if not tf_ok:
+            fail("phase teacher_forced missed a bar")
+        b1_err = max(b1_err, max(tf_row["vs_plain"][n] for n in (
+            "outputs", "decoder_states", "done")))
         if json_out:
             os.makedirs(os.path.dirname(os.path.abspath(json_out)),
                         exist_ok=True)
@@ -5657,7 +5973,8 @@ def main():
                            "presets": preset_rows, "cli": cli_rows,
                            "cli_launches": cli_l, "dsp": dsp_rows,
                            "dsp_launches": dsp_l, "mesh": mesh_rows,
-                           "mesh_launches": mesh_l}, f, indent=1,
+                           "mesh_launches": mesh_l,
+                           "teacher_forced": tf_row}, f, indent=1,
                           default=str)
 
     b1_bound = b1_rows["B1"]["bound"]
@@ -5688,11 +6005,18 @@ def main():
          "launches": sum(b1_paths.values()) + sum(b1_slots.values())
          + cli["fused_decode"] + cli["fused_decode_slots"]
          + dsp["fused_decode"] + dsp["fused_decode_slots"]
-         + mesh_l["fused_decode"]["launches"],
+         + mesh_l["fused_decode"]["launches"] + tf_launches,
          "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain_ms,
          "bound_ms": b1_bound[0], "bound_by": b1_bound[1],
          "library_ms": None, "timing": "host-paced",
-         "launch_ms": b1_launch_ms},
+         "launch_ms": b1_launch_ms,
+         "teacher_forced": {
+             "launches": tf_launches,
+             "ms": tf_row["ms"]["model_decode_b1"],
+             "plain_ms": tf_row["ms"]["plain_decode"],
+             "ms_per_frame": tf_row["ms"]["b1_per_frame"],
+             "bound_ms": tf_row["bound"][0],
+             "bound_by": tf_row["bound"][1]}},
         {"name": "fused_decode_slots", "route": "cuda",
          "source": "deepvoice3_pytorch_tpu_torch/csrc/fused_decode.cu",
          "replaces": "deepvoice3_pytorch_tpu/ops/fused_decode.py:198",

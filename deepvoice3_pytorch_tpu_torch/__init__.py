@@ -14,3 +14,17 @@ Importing this package imports neither jax nor the JAX package.
 """
 
 __version__ = "0.1.0"
+
+from . import builder  # noqa: F401,E402
+from .builder import (  # noqa: F401,E402
+    TTSModelConfig, deepvoice3, nyanko, deepvoice3_multispeaker,
+    model_forward, model_synthesize)
+from .params import model_init  # noqa: F401,E402
+
+
+def tts_stream(*args, **kwargs):
+    """Streaming synthesis generator: streaming.tts_stream, imported on
+    call."""
+    from . import streaming
+
+    return streaming.tts_stream(*args, **kwargs)

@@ -297,8 +297,9 @@ def model_forward(params, cfg: TTSModelConfig, text_sequences, mel_targets, *,
 
 def model_decode(params, cfg: TTSModelConfig, text_sequences,
                  text_positions, *, speaker_ids=None, input_lengths=None,
-                 max_decoder_steps=None, early_exit=True):
-    """Encoder + greedy autoregressive decode (no postnet).
+                 max_decoder_steps=None, early_exit=True, test_inputs=None):
+    """Encoder + greedy autoregressive decode (no postnet); with
+    test_inputs (B, T/r, mel * r), teacher-forced over its frames.
 
     Returns (mel_outputs (B,T,mel), postnet_inputs (B,T,·), alignments,
     done (B,T/r), lengths (B,))."""
@@ -311,7 +312,8 @@ def model_decode(params, cfg: TTSModelConfig, text_sequences,
     out = fam.decoder_decode(
         params["decoder"], cfg.decoder, encoder_out, text_positions,
         speaker_embed=speaker_embed, lengths=input_lengths,
-        max_decoder_steps=max_decoder_steps, early_exit=early_exit)
+        max_decoder_steps=max_decoder_steps, early_exit=early_exit,
+        test_inputs=test_inputs)
     mel_outputs = out.outputs.reshape(B, -1, cfg.mel_dim)
     if cfg.use_decoder_state_for_postnet_input:
         postnet_inputs = out.decoder_states.reshape(
@@ -328,3 +330,22 @@ def model_postnet(params, cfg: TTSModelConfig, postnet_inputs, *,
     return cfg.family.converter_apply(
         params["converter"], cfg.converter, postnet_inputs,
         speaker_embed=embed_speakers(params, cfg, speaker_ids))
+
+
+def model_synthesize(params, cfg: TTSModelConfig, text_sequences,
+                     text_positions, *, speaker_ids=None, input_lengths=None,
+                     max_decoder_steps=None, early_exit=True,
+                     test_inputs=None):
+    """Greedy autoregressive synthesis: model_decode, then model_postnet on
+    every decoded frame (no trim to the lengths).
+
+    Returns (mel_outputs, linear_outputs, alignments (B,T/r,T_k),
+    done (B,T/r), lengths (B,))."""
+    mel_outputs, postnet_inputs, alignments, done, lengths = model_decode(
+        params, cfg, text_sequences, text_positions,
+        speaker_ids=speaker_ids, input_lengths=input_lengths,
+        max_decoder_steps=max_decoder_steps, early_exit=early_exit,
+        test_inputs=test_inputs)
+    linear_outputs = model_postnet(params, cfg, postnet_inputs,
+                                   speaker_ids=speaker_ids)
+    return mel_outputs, linear_outputs, alignments, done, lengths

@@ -453,10 +453,13 @@ def fused_decode_inputs(params, cfg: DecoderConfig, encoder_out,
 
 def decoder_decode(params, cfg: DecoderConfig, encoder_out, text_positions, *,
                    speaker_embed=None, lengths=None, initial_input=None,
-                   max_decoder_steps=None, early_exit=False):
+                   test_inputs=None, max_decoder_steps=None,
+                   early_exit=False):
     """Greedy autoregressive decoding through ops/fused_decode: the CUDA
     kernel for CUDA tensors, its plain version for CPU tensors. The padding
-    mask is applied whenever `lengths` is given."""
+    mask is applied whenever `lengths` is given. With test_inputs (B, T,
+    in_dim * r) the decode is teacher-forced over its T frames, one frame a
+    launch (max_decoder_steps and early_exit unused)."""
     from . import decode as decode_lib
     from ..ops import fused_decode as fd
 
@@ -465,12 +468,16 @@ def decoder_decode(params, cfg: DecoderConfig, encoder_out, text_positions, *,
     max_steps = max_decoder_steps or cfg.max_decoder_steps
     mask = (core.get_mask_from_lengths(lengths, Tk)
             if lengths is not None else None)
-    if initial_input is None:
+    if test_inputs is not None:
+        test_inputs = test_inputs.to(device=keys.device, dtype=keys.dtype)
+        max_steps = test_inputs.shape[1]
+    elif initial_input is None:
         initial_input = torch.zeros(B, cfg.in_dim * cfg.r, device=keys.device)
     fi = fused_decode_inputs(params, cfg, encoder_out, text_positions,
                              max_steps, speaker_embed=speaker_embed)
     out = fd.fused_decode(params, cfg, fi, mask, initial_input, max_steps,
-                          cfg.min_decoder_steps, early_exit=early_exit)
+                          cfg.min_decoder_steps, early_exit=early_exit,
+                          test_inputs=test_inputs)
     return decode_lib.DecodeLoopOut(
         out.outputs, out.alignments, out.done, out.decoder_states,
         decode_lib._length_from_done(out.done, cfg.min_decoder_steps,

@@ -39,6 +39,11 @@ from .. import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
+# conv1d_apply's calls under conv_mode("kernel") that B3's contract does not
+# take (a length-changing padding) and F.conv1d computes, by kind; beside
+# KERNEL's launch counts, so that no kernel-mode conv goes unseen
+LIBRARY_CALLS = collections.Counter()
+
 KERNEL = _build.Kernel("conv_taps.cu", {
     "dv3_conv_taps_fwd": [_P, _P, _P, _P] + [_I] * 9 + [_P, _I],
     "dv3_conv_taps_wgrad": [_P, _P, _P, _P] + [_I] * 12 + [_P, _I],

@@ -154,25 +154,36 @@ class conv_mode:
         _conv_mode.reset(self._token)
 
 
-def conv1d_apply(p, x, *, dilation=1, causal=False):
-    """1-D convolution on (B, T, C), output length == input length.
+def conv1d_apply(p, x, *, dilation=1, padding=None, causal=False):
+    """1-D convolution on (B, T, C).
 
-    causal: left-pad (kw-1)*dilation; otherwise symmetric
-    (kw-1)//2*dilation on each side (odd kernels)."""
-    return _column_parallel(p, x, lambda x: _conv1d(p, x, dilation, causal))
+    causal: left-pad (kw-1)*dilation; otherwise `padding` (l, r) frames,
+    or by default symmetric (kw-1)//2*dilation on each side (odd kernels).
+    The output has T + l + r - (kw-1)*dilation frames: T unless an
+    explicit padding changes the length. Under conv_mode("kernel") a
+    length-changing padding takes F.conv1d (kernel B3 keeps the length, as
+    the JAX package's Pallas conv does), counted in
+    conv_cuda.LIBRARY_CALLS."""
+    return _column_parallel(p, x, lambda x: _conv1d(p, x, dilation, padding,
+                                                    causal))
 
 
-def _conv1d(p, x, dilation, causal):
+def _conv1d(p, x, dilation, padding, causal):
     w = conv1d_weight(p)
     kw = w.shape[0]
     if kw == 1:
         return x @ w[0] + p["b"]
     if causal:
         pad = ((kw - 1) * dilation, 0)
-    else:
+    elif padding is None:
         pad = ((kw - 1) // 2 * dilation,) * 2
+    else:
+        pad = tuple(padding)
     sp = _sp.get()
     if sp is not None:
+        if sum(pad) != (kw - 1) * dilation:
+            raise ValueError("a length-changing padding %r under "
+                             "sequence_parallel" % (pad,))
         T = x.shape[1]
         xe = _Halo.apply(x, sp, pad[0], pad[1])
         return _conv1d_padded(p, xe, w, pad, dilation)[:, pad[0]:pad[0] + T]
@@ -181,7 +192,9 @@ def _conv1d(p, x, dilation, causal):
 
 def _conv1d_padded(p, x, w, pad, dilation):
     if _conv_mode.get() == "kernel":
-        return conv_cuda.conv1d_taps(x, w, p["b"], pad, dilation)
+        if sum(pad) == (w.shape[0] - 1) * dilation:
+            return conv_cuda.conv1d_taps(x, w, p["b"], pad, dilation)
+        conv_cuda.LIBRARY_CALLS["fwd_length_changing"] += 1
     xp = F.pad(x.transpose(1, 2), pad)                   # (B, C, T + pads)
     y = F.conv1d(xp, w.permute(2, 1, 0), dilation=dilation)
     return y.transpose(1, 2) + p["b"]
@@ -364,15 +377,21 @@ class _Halo(torch.autograd.Function):
 
 
 def conv_transpose1d_apply(p, x, *, stride=2):
-    """Transposed conv (B, T, C) -> (B, T*stride, C_out) for kernel_size ==
-    stride, the only shape the models use: one matmul plus an interleave,
-    y[b, t*stride + j, o] = sum_i x[b, t, i] * w[j, i, o] + b[o]."""
+    """Transposed conv (B, T, C) -> (B, L, C_out), what the JAX package's
+    `lax.conv_transpose(x, w, (stride,), "VALID")` computes: L = (T - 1) *
+    stride + kw frames, or T * stride where kw < stride. For kernel_size ==
+    stride, the only shape the models use, L = T * stride and it is one
+    matmul plus an interleave, y[b, t*stride + j, o] = sum_i x[b, t, i] *
+    w[j, i, o] + b[o]. Otherwise F.conv_transpose1d with the taps flipped:
+    lax.conv_transpose (transpose_kernel False) slides w unflipped over the
+    stride-dilated input."""
     w = conv_transpose1d_weight(p)                       # (kw, in, out)
     kw, cin, cout = w.shape
     if kw != stride:
-        raise NotImplementedError(
-            "conv_transpose1d_apply supports kernel_size == stride only "
-            "(got %d, %d)" % (kw, stride))
+        y = F.conv_transpose1d(x.transpose(1, 2), w.flip(0).permute(1, 2, 0),
+                               stride=stride,
+                               output_padding=max(stride - kw, 0))
+        return y.transpose(1, 2) + p["b"]
     B, T, _ = x.shape
     y = x @ w.permute(1, 0, 2).reshape(cin, kw * cout)
     return y.reshape(B, T * kw, cout) + p["b"]

@@ -12,7 +12,11 @@ deepvoice3_pytorch_tpu/ops/fused_decode.py.
 Both run `chunk` frames between checks of the done latch (the rule
 `done > 0.5 and t+1 > min_steps`, at chunk granularity) and stop after the
 first chunk in which every sample has finished; the latch costs one small
-device-to-host read per chunk.
+device-to-host read per chunk. Given `test_inputs` (B, T, out_dim), both
+run teacher-forced instead (the JAX package's `decode_scan(test_inputs=)`):
+T frames, one a launch, the carry's previous frame set to the teacher's
+frame t before frame t; the kernel is the same, since it reads its input
+frame from the carry at every launch.
 
 `FusedDecoder` is the public launch-and-carry interface: it takes the
 packed plan (`packed_plan`: the op table compiled into the kernel's stages,
@@ -836,6 +840,10 @@ class FusedDecoder(_KernelDecoder):
     def last_attended(self, carry):
         return carry.last_attended[:, :self.plan.n_att]
 
+    def set_prev(self, carry, frame):
+        """Make (B, out_dim) `frame` the next launch's previous frame."""
+        carry.prev.copy_(frame)
+
     def launch(self, carry, outputs, t0, steps, trace=None):
         """Run frames t0 .. t0+steps-1 from `carry`: writes them into
         `outputs` (from new_outputs) and updates `carry` in place. trace:
@@ -905,6 +913,10 @@ class PlainDecoder(_Decoder):
 
     def last_attended(self, carry):
         return carry["state"]["last_attended"][:, self.att].to(torch.int32)
+
+    def set_prev(self, carry, frame):
+        """Make (B, out_dim) `frame` the next launch's previous frame."""
+        carry["prev"] = frame.to(self.dtype)
 
     def launch(self, carry, outputs, t0, steps):
         """Run frames t0 .. t0+steps-1 from `carry` into `outputs`."""
@@ -1200,10 +1212,16 @@ def make_slot_decoder(params, cfg, n_slots, device):
 
 
 def _decode_chunks(decoder_cls, params, cfg, inputs, mask, initial_input,
-                   max_steps, min_steps, early_exit, chunk):
+                   max_steps, min_steps, early_exit, chunk, test_inputs=None):
     """The host loop: `chunk` frames per launch from a zero carry; with
     early_exit, stop after the first chunk in which every sample's done
-    latch fired."""
+    latch fired. With test_inputs (B, T, out_dim) the loop is teacher-forced
+    instead: one frame a launch, frame t reading test_inputs[:, t] as its
+    previous frame (initial_input, max_steps and early_exit unused), T
+    frames, as the JAX package's `decode_scan(test_inputs=)`."""
+    if test_inputs is not None:
+        return _teacher_forced(decoder_cls, params, cfg, inputs, mask,
+                               test_inputs)
     chunk = min(chunk, max_steps)
     n_chunks = -(-max_steps // chunk)
     dec = decoder_cls(params, cfg, inputs, mask, n_chunks * chunk)
@@ -1222,28 +1240,48 @@ def _decode_chunks(decoder_cls, params, cfg, inputs, mask, initial_input,
                           dec.last_attended(carry))
 
 
-def fused_decode(params, cfg, inputs, mask, initial_input, max_steps,
-                 min_steps, *, early_exit=True, chunk=DEFAULT_CHUNK):
-    """Decode up to max_steps frames, `chunk` frames per launch.
+def _teacher_forced(decoder_cls, params, cfg, inputs, mask, test_inputs):
+    """T = test_inputs.shape[1] frames, one a launch, the carry's previous
+    frame set to test_inputs[:, t] before frame t (the kernel reads its
+    input frame from the carry at every launch and writes its output there,
+    which the next frame's copy replaces)."""
+    T = test_inputs.shape[1]
+    dec = decoder_cls(params, cfg, inputs, mask, T)
+    carry = dec.zero_carry(test_inputs[:, 0])
+    outs = dec.new_outputs(T)
+    for t in range(T):
+        dec.set_prev(carry, test_inputs[:, t])
+        dec.launch(carry, outs, t, 1)
+    return FusedDecodeOut(*outs, T, dec.last_attended(carry))
 
-    inputs: the family's `fused_decode_inputs(...)`. mask: (B, Tk)
-    bool, True where padded, or None. Returns FusedDecodeOut."""
-    if initial_input.device.type == "cpu":
+
+def fused_decode(params, cfg, inputs, mask, initial_input, max_steps,
+                 min_steps, *, early_exit=True, chunk=DEFAULT_CHUNK,
+                 test_inputs=None):
+    """Decode up to max_steps frames, `chunk` frames per launch; with
+    test_inputs (B, T, out_dim), teacher-forced over its T frames, one a
+    launch (see `_decode_chunks`).
+
+    inputs: the family's `fused_decode_inputs(...)`, its position table
+    covering T frames when teacher-forced. mask: (B, Tk) bool, True where
+    padded, or None. Returns FusedDecodeOut."""
+    x = initial_input if test_inputs is None else test_inputs
+    if x.device.type == "cpu":
         return fused_decode_plain(params, cfg, inputs, mask, initial_input,
                                   max_steps, min_steps, early_exit=early_exit,
-                                  chunk=chunk)
-    if initial_input.device.type != "cuda":
-        raise ValueError("fused_decode: unsupported device %s"
-                         % initial_input.device)
+                                  chunk=chunk, test_inputs=test_inputs)
+    if x.device.type != "cuda":
+        raise ValueError("fused_decode: unsupported device %s" % x.device)
     return _decode_chunks(FusedDecoder, params, cfg, inputs, mask,
                           initial_input, max_steps, min_steps, early_exit,
-                          chunk)
+                          chunk, test_inputs)
 
 
 def fused_decode_plain(params, cfg, inputs, mask, initial_input, max_steps,
-                       min_steps, *, early_exit=True, chunk=DEFAULT_CHUNK):
+                       min_steps, *, early_exit=True, chunk=DEFAULT_CHUNK,
+                       test_inputs=None):
     """Plain PyTorch version of the kernel: the same host loop over
     `PlainDecoder`, latch checked every `chunk` frames."""
     return _decode_chunks(PlainDecoder, params, cfg, inputs, mask,
                           initial_input, max_steps, min_steps, early_exit,
-                          chunk)
+                          chunk, test_inputs)

@@ -447,6 +447,74 @@ def test_fused_decode_grid_not_coresident_raises(dev):
         dec.launch(carry, outs, 0, 4)
 
 
+@pytest.mark.parametrize("name", ["deepvoice3", "nyanko",
+                                  "deepvoice3_multispeaker"])
+def test_teacher_forced_b1_matches_plain_and_forward(dev, name):
+    """decoder_decode(test_inputs=) launches B1 once a frame (T launches)
+    and agrees with B1's plain version on the card and with the offline
+    decoder_apply under conv_mode("kernel") (B3), monotonic attention off:
+    1e-4 of each output's scale (the other B1 tests' bar)."""
+    r = 1 if name == "nyanko" else 4
+    kw = dict(n_vocab=149, embed_dim=32, mel_dim=16, linear_dim=65, r=r,
+              downsample_step=4, kernel_size=3, encoder_channels=32,
+              decoder_channels=32, converter_channels=32,
+              use_memory_mask=True, max_positions=64,
+              force_monotonic_attention=False)
+    if name != "nyanko":
+        kw.update(key_projection=True, value_projection=True)
+    if name == "deepvoice3_multispeaker":
+        kw.update(n_speakers=5, speaker_embed_dim=8)
+    cfg = getattr(builder, name)(**kw)
+    params = builder.model_init(cfg, torch.Generator().manual_seed(0), dev)
+    g = torch.Generator().manual_seed(1)
+    B, Tk, T = 2, 12, 10
+    lengths = torch.tensor([Tk, Tk - 4])
+    pos = torch.arange(1, Tk + 1)[None].repeat(B, 1)
+    valid = pos <= lengths[:, None]
+    text = torch.randint(1, 149, (B, Tk), generator=g) * valid
+    pos = pos * valid
+    frames = torch.rand(B, T, 16 * r, generator=g)
+    text, pos, lengths, frames = (a.to(dev) for a in (text, pos, lengths,
+                                                      frames))
+    se = builder.embed_speakers(
+        params, cfg, torch.tensor([1, 3], device=dev)
+        if cfg.n_speakers > 1 else None)
+    fam, dc = cfg.family, cfg.decoder
+    enc = fam.encoder_apply(params["encoder"], cfg.encoder, text,
+                            speaker_embed=se)
+    fd.KERNEL.reset_counts()
+    got = fam.decoder_decode(params["decoder"], dc, enc, pos,
+                             speaker_embed=se, lengths=lengths,
+                             test_inputs=frames)
+    assert fd.KERNEL.by_entry == {"chunk": T}
+    fi = fam.fused_decode_inputs(params["decoder"], dc, enc, pos, T,
+                                 speaker_embed=se)
+    want = fd.fused_decode_plain(params["decoder"], dc, fi,
+                                 core.get_mask_from_lengths(lengths, Tk),
+                                 None, T, dc.min_decoder_steps,
+                                 test_inputs=frames)
+    assert got.num_steps == want.num_steps == T
+    for name in ("outputs", "alignments", "done", "decoder_states"):
+        a, b = getattr(got, name), getattr(want, name)
+        d = float((a - b).abs().max())
+        assert d <= 1e-4 * max(1.0, float(b.abs().max())), (name, d)
+    conv_cuda.KERNEL.reset_counts()
+    with core.conv_mode("kernel"):
+        enc_k = fam.encoder_apply(params["encoder"], cfg.encoder, text,
+                                  speaker_embed=se)
+        off = fam.decoder_apply(
+            params["decoder"], dc, enc_k, frames, text_positions=pos,
+            frame_positions=torch.arange(1, T + 1, device=dev)[None].repeat(
+                B, 1), speaker_embed=se, lengths=lengths)
+    assert conv_cuda.KERNEL.launches > 0
+    for name, a, b in (("outputs", got.outputs, off[0]),
+                       ("decoder_states", got.decoder_states, off[3]),
+                       ("done", got.done, off[2][..., 0]),
+                       ("alignments", got.alignments, off[1].mean(0))):
+        d = float((a - b).abs().max())
+        assert d <= 1e-4 * max(1.0, float(b.abs().max())), (name, d)
+
+
 def test_tiny_batcher_gpu_matches_cpu(dev):
     """A tiny model's ContinuousBatcher on the card (B1's serving modes,
     B2's stream modes) against the same submit/step schedule on the CPU:
