@@ -10,6 +10,7 @@ from .models import deepvoice3 as dv3
 from .models import nyanko as nk
 from .ops import core
 from .params import model_init  # noqa: F401  (re-export)
+from .utils import profiling
 
 
 @dataclass(frozen=True)
@@ -305,15 +306,17 @@ def model_decode(params, cfg: TTSModelConfig, text_sequences,
     done (B,T/r), lengths (B,))."""
     fam = cfg.family
     B = text_sequences.shape[0]
-    speaker_embed = embed_speakers(params, cfg, speaker_ids)
-    encoder_out = fam.encoder_apply(params["encoder"], cfg.encoder,
-                                    text_sequences,
-                                    speaker_embed=speaker_embed)
-    out = fam.decoder_decode(
-        params["decoder"], cfg.decoder, encoder_out, text_positions,
-        speaker_embed=speaker_embed, lengths=input_lengths,
-        max_decoder_steps=max_decoder_steps, early_exit=early_exit,
-        test_inputs=test_inputs)
+    with profiling.span("dv3.encoder", "device"):
+        speaker_embed = embed_speakers(params, cfg, speaker_ids)
+        encoder_out = fam.encoder_apply(params["encoder"], cfg.encoder,
+                                        text_sequences,
+                                        speaker_embed=speaker_embed)
+    with profiling.span("dv3.decode", "device"):
+        out = fam.decoder_decode(
+            params["decoder"], cfg.decoder, encoder_out, text_positions,
+            speaker_embed=speaker_embed, lengths=input_lengths,
+            max_decoder_steps=max_decoder_steps, early_exit=early_exit,
+            test_inputs=test_inputs)
     mel_outputs = out.outputs.reshape(B, -1, cfg.mel_dim)
     if cfg.use_decoder_state_for_postnet_input:
         postnet_inputs = out.decoder_states.reshape(

@@ -134,6 +134,19 @@ def save_states(global_step, writer, outputs, batch, checkpoint_dir, ap):
                    ap.sample_rate)
 
 
+def _steady_report(steady, writer, step):
+    """Steps/s on the steady clock (from the third step on, saves and evals
+    left out), written as the `perf/*` scalars; "" before it starts."""
+    if steady["t"] is None or not steady["steps"]:
+        return ""
+    s = (time.perf_counter() - steady["t"] - steady["excluded_s"]) \
+        / steady["steps"]
+    if writer is not None:
+        writer.add_scalar("perf/steps_per_sec", 1.0 / s, step)
+        writer.add_scalar("perf/sec_per_step", s, step)
+    return "%.2f steps/s (%.0f ms/step)" % (1.0 / s, s * 1000.0)
+
+
 def eval_model(global_step, writer, params, cfg, ap, frontend_mod,
                checkpoint_dir, max_decoder_steps=500):
     """Synthesize the fixed eval sentences with tts_batch (kernels B1 and
@@ -386,7 +399,6 @@ def _train(args, device, mesh, say):
     if main_rank:
         os.makedirs(args.checkpoint_dir, exist_ok=True)
     gen = torch.Generator(device=device)
-    step_timer = profiling.StepTimer()
     tracer = profiling.TraceWindow(args.profile_dir, args.profile_start,
                                    args.profile_steps)
     summary = {"device": str(device), "first_step": global_step + 1,
@@ -460,7 +472,6 @@ def _train(args, device, mesh, say):
                     args.seed * 1000003 + global_step, mesh))
                 state, metrics = step_fn(state, batch, gen)
                 global_step += 1
-                step_timer.tick()
                 tracer.maybe_stop(global_step)
                 running.append(metrics["loss"])
                 if steady["t"] is None and global_step - summary[
@@ -472,7 +483,7 @@ def _train(args, device, mesh, say):
 
                 if main_rank and (global_step % 50 == 0 or global_step < 5):
                     m = {k: float(v) for k, v in metrics.items()}
-                    perf = step_timer.report(writer, global_step)
+                    perf = _steady_report(steady, writer, global_step)
                     print("step %d | loss %.4f | %s%s"
                           % (global_step, m["loss"],
                              " ".join("%s %.4f" % (k, v)

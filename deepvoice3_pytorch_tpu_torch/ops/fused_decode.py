@@ -56,6 +56,7 @@ from .. import _build
 from ..models import deepvoice3 as dv3
 from ..models import nyanko as nk
 from ..models.decode import chunk_latch
+from ..utils import profiling
 from . import core
 
 MASK = -1.0e9
@@ -918,8 +919,9 @@ class PlainDecoder(_Decoder):
         """Make (B, out_dim) `frame` the next launch's previous frame."""
         carry["prev"] = frame.to(self.dtype)
 
-    def launch(self, carry, outputs, t0, steps):
-        """Run frames t0 .. t0+steps-1 from `carry` into `outputs`."""
+    def launch(self, carry, outputs, t0, steps, trace=None):
+        """Run frames t0 .. t0+steps-1 from `carry` into `outputs`. trace:
+        None (the plain version writes no stamps)."""
         total = outputs[0].shape[1]
         if carry["t"] != t0 or t0 + steps > min(total, self.n_steps):
             raise ValueError("frames %d..%d do not follow the carry (frame "
@@ -1224,16 +1226,23 @@ def _decode_chunks(decoder_cls, params, cfg, inputs, mask, initial_input,
                                test_inputs)
     chunk = min(chunk, max_steps)
     n_chunks = -(-max_steps // chunk)
-    dec = decoder_cls(params, cfg, inputs, mask, n_chunks * chunk)
-    carry = dec.zero_carry(initial_input)
-    outs = dec.new_outputs(n_chunks * chunk)
-    latch = torch.zeros(dec.B, dtype=torch.bool, device=dec.device)
+    with profiling.span("dv3.decode.prepare", "device"):
+        dec = decoder_cls(params, cfg, inputs, mask, n_chunks * chunk)
+        carry = dec.zero_carry(initial_input)
+        outs = dec.new_outputs(n_chunks * chunk)
+        latch = torch.zeros(dec.B, dtype=torch.bool, device=dec.device)
+    # while a window records, each launch of B1 stamps its stages
+    n_stages = len(dec.layout.stages) if isinstance(dec, FusedDecoder) \
+        else 0
     c = 0
     while c < n_chunks and not (early_exit and bool(latch.all())):
         t0 = c * chunk
-        dec.launch(carry, outs, t0, chunk)
-        if early_exit:
-            latch |= chunk_latch(outs[2][:, t0:t0 + chunk], t0, min_steps)
+        with profiling.span("dv3.decode.chunk", "device") as sp:
+            dec.launch(carry, outs, t0, chunk,
+                       trace=sp.stamps(n_stages, chunk, dec.device))
+            if early_exit:
+                latch |= chunk_latch(outs[2][:, t0:t0 + chunk], t0,
+                                     min_steps)
         c += 1
     o, a, d, s = (x[:, :max_steps] for x in outs)
     return FusedDecodeOut(o, a, d, s, min(c * chunk, max_steps),

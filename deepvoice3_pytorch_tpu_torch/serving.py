@@ -440,11 +440,6 @@ class ContinuousBatcher:
         # and the step-start emission state the retire path rewinds to
         self._pending = None
         self._emit_snap = None
-        self._last_retired = 0
-        # per-step log when a list: (wall_s, n_active, n_admitted,
-        # n_conv_groups, n_gl_launches, n_retired)
-        self.step_log = None
-        self._last_emit_counts = (0, 0)
 
     def timing(self):
         """Cumulative host wall-clock per step() phase since construction,
@@ -589,7 +584,7 @@ class ContinuousBatcher:
             slot.prev_phase = (slot.M, slot.e_m, slot.n_ctx, slot.n_pend)
             slot.M += self.chunk * self.r
             conv_groups.setdefault(self.emit.conv_sig(slot), []).append(b)
-        jobs, has_raw, n_gl = [], False, 0
+        jobs, has_raw = [], False
         for sig, idx in conv_groups.items():
             n_new = (sig[2] - sig[1]) * self.emit.up
             gl_groups = {}
@@ -600,7 +595,6 @@ class ContinuousBatcher:
                 slots_np = np.asarray(slots, np.int64)
                 raw = self.emit.dispatch(gsig, slots_np, conv_sig=sig)
                 has_raw |= isinstance(raw, str)
-                n_gl += raw is not None
                 jobs.append((slots_np, [self._slots[b] for b in slots_np],
                              raw, gsig[0] > 0, gsig))
                 # the phase moves at dispatch (it depends on signatures
@@ -609,7 +603,6 @@ class ContinuousBatcher:
                     slot = self._slots[b]
                     self._apply_gl_result(slot, n_new, True)
                     slot.e_m = slot.M - self.emit.ctx_r
-        self._last_emit_counts = (len(conv_groups), n_gl)
         return jobs, has_raw
 
     def _complete_jobs(self, jobs, raw_host):
@@ -691,7 +684,6 @@ class ContinuousBatcher:
         while a step in flight remains to harvest and 0 when idle."""
         with self._lock:
             t0 = time.perf_counter()
-            n_admitted = 0
             for b in range(self.n_slots):
                 if self._slots[b] is None and not self._waiting.empty():
                     try:
@@ -703,7 +695,6 @@ class ContinuousBatcher:
                     except Exception as e:       # noqa: BLE001
                         out_q.put(("error", e))
                         raise
-                    n_admitted += 1
             active = [b for b in range(self.n_slots)
                       if self._slots[b] is not None]
             if not active:
@@ -744,11 +735,6 @@ class ContinuousBatcher:
             self._pending = {"jobs": jobs, "fetch": fetch,
                              "has_raw": has_raw, "entries": entries}
             self._process_pending(dispatched=True, pending=prev_pending)
-            if self.step_log is not None:
-                self.step_log.append(
-                    (time.perf_counter() - t0, len(active), n_admitted,
-                     self._last_emit_counts[0], self._last_emit_counts[1],
-                     self._last_retired))
             return len(active)
 
     def _process_pending(self, dispatched, pending="take"):
@@ -762,7 +748,6 @@ class ContinuousBatcher:
         before the flush; a drain call launched nothing, so no rewind."""
         if pending == "take":
             pending, self._pending = self._pending, None
-        self._last_retired = 0
         if pending is None:
             return
         t4 = time.perf_counter()
@@ -804,7 +789,6 @@ class ContinuousBatcher:
                     self._emit_snap, em.index([b]))
                 slot.M, slot.e_m, slot.n_ctx, slot.n_pend = slot.prev_phase
             self._finish_slot(b, n_dec)
-            self._last_retired += 1
         self._phase_s["retire"] += time.perf_counter() - t6
 
     def _fail_all(self, exc):

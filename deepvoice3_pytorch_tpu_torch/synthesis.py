@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from .builder import model_decode, model_postnet
 from .dsp.audio import AudioProcessor
 from .parallel import mesh as mesh_lib
+from .utils import profiling
 
 # The post-decode trim keeps the batch's longest decoded length plus slack
 # for the converter's receptive field, rounded up to a bucket, so every real
@@ -121,19 +122,30 @@ def tts_batch(params, cfg, ap: AudioProcessor, frontend_mod, texts, *,
     `tts_batch(mesh=)` does. Held to the one-process call and to JAX's by
     tests/test_torch_mesh.py::test_dp_tts_batch_matches_one_process_and_jax.
     """
+    with profiling.span("dv3.tts_batch") as call:
+        return _tts_batch(call, params, cfg, ap, frontend_mod, texts, p,
+                          speaker_ids, max_decoder_steps, early_exit, pad_to,
+                          mesh)
+
+
+def _tts_batch(call, params, cfg, ap, frontend_mod, texts, p, speaker_ids,
+               max_decoder_steps, early_exit, pad_to, mesh):
+    """tts_batch's body, its stages in spans under `call`."""
     device = _param_device(params)
-    host = _prepare_batch(frontend_mod, texts, p, pad_to)
+    with profiling.span("dv3.tts.frontend", "host"):
+        host = _prepare_batch(frontend_mod, texts, p, pad_to)
     ids = None if speaker_ids is None else np.asarray(
         speaker_ids, np.int64).reshape(-1)
-    if mesh is not None:
-        arrays = _shard_texts(mesh, list(host) + (
-            [] if ids is None else [ids]), device)
-        x, pos, lengths = arrays[0], arrays[1], arrays[2][:, 0]
-        if ids is not None:
-            ids = arrays[3][:, 0].cpu().numpy()
-    else:
-        x, pos, lengths = (torch.from_numpy(a).to(device) for a in host)
-    spk = speaker_id_tensor(cfg, ids, device)
+    with profiling.span("dv3.tts.to_device", "host"):
+        if mesh is not None:
+            arrays = _shard_texts(mesh, list(host) + (
+                [] if ids is None else [ids]), device)
+            x, pos, lengths = arrays[0], arrays[1], arrays[2][:, 0]
+            if ids is not None:
+                ids = arrays[3][:, 0].cpu().numpy()
+        else:
+            x, pos, lengths = (torch.from_numpy(a).to(device) for a in host)
+        spk = speaker_id_tensor(cfg, ids, device)
 
     mel, pin, align, done, dec_lengths = model_decode(
         params, cfg, x, pos, speaker_ids=spk, input_lengths=lengths,
@@ -141,19 +153,24 @@ def tts_batch(params, cfg, ap: AudioProcessor, frontend_mod, texts, *,
 
     # trim the postnet input to the batch's longest decoded length before
     # the converter and vocoder: their cost follows the decoded audio
-    n_dec_max = dec_lengths.max()
-    if mesh is not None:
-        n_dec_max = mesh_lib.all_reduce(
-            n_dec_max.reshape(1), mesh_lib.axis_group(
-                mesh, mesh_lib.DATA_AXIS), op=torch.distributed.ReduceOp.MAX)
-    n_dec_max = int(n_dec_max.max())
+    with profiling.span("dv3.tts.sync_steps", "host"):
+        n_dec_max = dec_lengths.max()
+        if mesh is not None:
+            n_dec_max = mesh_lib.all_reduce(
+                n_dec_max.reshape(1), mesh_lib.axis_group(
+                    mesh, mesh_lib.DATA_AXIS),
+                op=torch.distributed.ReduceOp.MAX)
+        n_dec_max = int(n_dec_max.max())
     n_bucket = min(max_decoder_steps,
                    _round_up(n_dec_max + SLACK_DEC_STEPS, BUCKET_DEC_STEPS))
-    linear = model_postnet(params, cfg, pin[:, :n_bucket * cfg.r],
-                           speaker_ids=spk)
-    wav = ap.inv_spectrogram_device(linear)
-    mel = ap._denormalize(mel)
-    linear = ap._denormalize(linear)
+    with profiling.span("dv3.tts.converter", "device"):
+        linear = model_postnet(params, cfg, pin[:, :n_bucket * cfg.r],
+                               speaker_ids=spk)
+    with profiling.span("dv3.tts.griffin_lim", "device"):
+        wav = ap.inv_spectrogram_device(linear)
+    with profiling.span("dv3.tts.denormalize", "device"):
+        mel = ap._denormalize(mel)
+        linear = ap._denormalize(linear)
     if mesh is not None:
         time_up = getattr(cfg.converter, "time_upsampling", 1)
         n_mel = n_dec_max * cfg.r
@@ -163,27 +180,46 @@ def tts_batch(params, cfg, ap: AudioProcessor, frontend_mod, texts, *,
             [wav.shape[1], n_mel, n_mel * time_up, n_dec_max, 1, 1])
         wav, dec_lengths, lengths = wav[..., 0], dec_lengths[:, 0], \
             lengths[:, 0]
-    wav_batch = wav.cpu().numpy()
-    mel = mel.cpu().numpy()
-    linear = linear.cpu().numpy()
-    align = align.cpu().numpy()
-    lengths = lengths.cpu().numpy()
-    dec_lengths = dec_lengths.cpu().numpy()
+    with profiling.span("dv3.tts.to_host", "host"):
+        wav_batch = wav.cpu().numpy()
+        mel = mel.cpu().numpy()
+        linear = linear.cpu().numpy()
+        align = align.cpu().numpy()
+        lengths = lengths.cpu().numpy()
+        dec_lengths = dec_lengths.cpu().numpy()
 
     results = []
     time_up = getattr(cfg.converter, "time_upsampling", 1)
-    for i in range(len(texts)):
-        n_dec = int(dec_lengths[i])
-        n_mel = n_dec * cfg.r
-        n_lin = n_mel * time_up
-        results.append({
-            "waveform": wav_batch[i][:n_lin * ap.hop_size],
-            "mel": mel[i][:n_mel],
-            "linear": linear[i][:n_lin],
-            "alignment": align[i][:n_dec, :int(lengths[i])],
-            "num_decoder_steps": n_dec,
-        })
+    with profiling.span("dv3.tts.unpack", "host"):
+        for i in range(len(texts)):
+            n_dec = int(dec_lengths[i])
+            n_mel = n_dec * cfg.r
+            n_lin = n_mel * time_up
+            results.append({
+                "waveform": wav_batch[i][:n_lin * ap.hop_size],
+                "mel": mel[i][:n_mel],
+                "linear": linear[i][:n_lin],
+                "alignment": align[i][:n_dec, :int(lengths[i])],
+                "num_decoder_steps": n_dec,
+            })
+    if call:
+        _record_call(call, host[0], max_decoder_steps,
+                     (wav_batch, mel, linear, align, lengths, dec_lengths),
+                     results)
     return results
+
+
+def _record_call(call, x, steps_asked, copied, results):
+    """While a window records: the call's shape as it ran (rows, padded
+    text length, decoder steps asked; the benchmark holds them to the
+    calls it traced), the bytes the copies to the host moved and the bytes
+    of the slices returned."""
+    call.set(rows=x.shape[0], text_padded=x.shape[1],
+             steps_asked=steps_asked)
+    profiling.count("tts.bytes_to_host", sum(a.nbytes for a in copied))
+    profiling.count("tts.bytes_kept", sum(
+        r[k].nbytes for r in results
+        for k in ("waveform", "mel", "linear", "alignment")))
 
 
 def tts(params, cfg, ap, frontend_mod, text, *, p=0.0, speaker_id=None,

@@ -1,17 +1,48 @@
 # coding: utf-8
-"""Step timing and profiler traces for the train command line, counterpart
-of deepvoice3_pytorch_tpu/utils/profiling.py (which imports jax, so the port
+"""Tracing and profiler traces of the port, counterpart of
+deepvoice3_pytorch_tpu/utils/profiling.py (which imports jax, so the port
 keeps its own copy).
 
   * rss_mb — this process's resident set size;
-  * StepTimer — wall-clock per-step timing with a warm-up skip (the first
-    steps build the kernels and cuDNN's plans) and a rolling window;
+  * span / count — the recorder: named spans and counters at the layer
+    boundaries of the program (`synthesis.tts_batch` and what it calls),
+    kept in memory while a torch.profiler session records, or inside
+    `recording()`; `recorded()` gives the newest such window;
+  * fold_b1_stamps — where a launch of kernel B1 spent its time, from the
+    stamps the kernel writes;
   * TraceWindow — a torch.profiler trace of the CPU and the card over a step
     range, written as one Chrome trace (viewable in Perfetto) per window.
+
+While nothing records, a span or a count only checks that nothing
+records: it keeps nothing and reads no clock. While a window records, a
+span keeps its name (prefix `dv3.`), its class (`stage`: "host" for work
+the device waits on, "device" for work that launches device operations,
+None for a span that holds both, such as a call), its start and end from
+`time.time_ns()`, the index of its parent span and the call id of the root
+span it runs under (one id a root: a `dv3.tts_batch` call, or a lower
+layer's span when that layer is called on its own). Spans stay out of the
+profiler's own ranges: a `record_function` around launches becomes a
+device-side annotation that a trace reader would take for a kernel. The
+one range the recorder enters is `dv3.clock`, a few empty markers at the
+window's first span, which put the spans on the profiler's time axis
+(`Window.clock`).
 """
 
+import contextlib
 import os
+import threading
 import time
+
+import numpy as np
+import torch
+
+_profiler_on = torch._C._autograd._profiler_enabled
+
+CLOCK = "dv3.clock"
+CLOCK_MARKS = 3     # the first record_function of a session is slow and
+#                     lopsided; the reader aligns by the tightest marker
+STAMP_SLAB = 1 << 20    # int64 entries of a device buffer of B1 stamps
+STAGES = ("host", "device")
 
 
 def rss_mb(default=float("nan")):
@@ -27,46 +58,263 @@ def rss_mb(default=float("nan")):
     return default
 
 
-class StepTimer:
-    """Rolling per-step timing; call tick() once per optimizer step."""
+# ---------------------------------------------------------------------------
+# the recorder
+# ---------------------------------------------------------------------------
 
-    def __init__(self, warmup=2, window=50):
-        self.warmup = warmup
-        self.window = window
-        self._count = 0
-        self._t_last = None
-        self._times = []
 
-    def tick(self):
-        now = time.perf_counter()
-        self._count += 1
-        if self._t_last is not None and self._count > self.warmup:
-            self._times.append(now - self._t_last)
-            if len(self._times) > self.window:
-                self._times.pop(0)
-        self._t_last = now
+class Span:
+    """One recorded span: `name`, `stage` (None, or one of STAGES), `start`
+    and `end` (ns, `time.time_ns()`), `parent` (index into the window's
+    spans, -1 for a root), `call` (the root span's id) and `attrs`."""
 
-    @property
-    def seconds_per_step(self):
-        if not self._times:
-            return float("nan")
-        return sum(self._times) / len(self._times)
+    __slots__ = ("name", "stage", "start", "end", "parent", "call", "attrs",
+                 "index", "_window")
 
-    @property
-    def steps_per_second(self):
-        s = self.seconds_per_step
-        return 1.0 / s if s == s and s > 0 else float("nan")
+    def __init__(self, window, name, stage, attrs):
+        self._window = window
+        self.name = name
+        self.stage = stage
+        self.attrs = attrs
+        self.start = self.end = None
+        self.parent = -1
+        self.call = self.index = None
 
-    def report(self, writer=None, step=None):
-        if not self._times:
-            return ""
-        if writer is not None and step is not None:
-            writer.add_scalar("perf/steps_per_sec", self.steps_per_second,
-                              step)
-            writer.add_scalar("perf/sec_per_step", self.seconds_per_step,
-                              step)
-        return "%.2f steps/s (%.0f ms/step)" % (
-            self.steps_per_second, self.seconds_per_step * 1000.0)
+    def set(self, **attrs):
+        self.attrs.update(attrs)
+
+    def stamps(self, n_stages, steps, device):
+        """A stamp buffer for one launch of kernel B1 of `steps` steps of
+        `n_stages` stages (2 + 3 * steps * n_stages int64 on `device`),
+        kept with the window and folded when the window is read; None for
+        the plain decoder (n_stages 0)."""
+        if not n_stages:
+            return None
+        buf = _REC.stamp_buffer(2 + 3 * steps * n_stages, device)
+        self._window.stamps.append((buf, steps, n_stages))
+        return buf
+
+    def __enter__(self):
+        w = self._window
+        stack = _REC.stack()
+        parent = stack[-1] if stack and stack[-1]._window is w else None
+        with _REC.lock:
+            if parent is None:
+                w.n_calls += 1
+                self.call = w.n_calls
+            else:
+                self.parent, self.call = parent.index, parent.call
+            self.index = len(w.spans)
+            w.spans.append(self)
+        stack.append(self)
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end = time.time_ns()
+        _REC.stack().pop()
+        return False
+
+
+class _Off:
+    """The span of a call made while nothing records (false, so a caller
+    can skip work that only feeds a recorded span)."""
+
+    __slots__ = ()
+
+    def __bool__(self):
+        return False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs):
+        pass
+
+    def stamps(self, n_stages, steps, device):
+        return None
+
+
+_OFF = _Off()
+
+
+class Window:
+    """What one profiled window or `recording()` block recorded: `spans`
+    (in the order they began), `clock` (the `dv3.clock` markers, each the
+    (ns, ns) read inside it), the counters (`counters()`) and B1's stamps
+    (`b1_split()`)."""
+
+    def __init__(self):
+        self.spans = []
+        self.clock = []
+        self.stamps = []        # (int64 buffer, steps, stages)
+        self.n_calls = 0
+        self._counts = {}
+
+    def mark_clock(self):
+        for _ in range(CLOCK_MARKS):
+            with torch.profiler.record_function(CLOCK):
+                a = time.time_ns()
+                b = time.time_ns()
+            self.clock.append((a, b))
+
+    def add(self, name, n):
+        with _REC.lock:
+            self._counts[name] = self._counts.get(name, 0) + n
+
+    def counters(self):
+        return dict(self._counts)
+
+    def b1_split(self):
+        """Kernel B1's launches in the window folded (`fold_b1_stamps`) and
+        summed: launches, launch_ns, prologue_ns, work_ns, barrier_ns; None
+        without stamps. Reads the buffers back (waits for the device)."""
+        if not self.stamps:
+            return None
+        total = dict(launches=0, launch_ns=0, prologue_ns=0, work_ns=0,
+                     barrier_ns=0)
+        for buf, steps, n_stages in self.stamps:
+            one = fold_b1_stamps(buf.cpu().numpy(), steps, n_stages)
+            if one is None:
+                continue
+            total["launches"] += 1
+            for k, v in one.items():
+                total[k] += v
+        return total if total["launches"] else None
+
+
+class _Recorder:
+    def __init__(self):
+        self.forced = 0             # depth of recording() blocks
+        self.live = False           # the window takes this session's spans
+        self.window = None
+        self.lock = threading.Lock()
+        self._local = threading.local()
+        self._slabs = {}            # device -> [int64 buffers], reused
+        self._used = {}             # device -> (slab, offset) this window
+
+    def stack(self):
+        s = getattr(self._local, "stack", None)
+        if s is None:
+            s = self._local.stack = []
+        return s
+
+    def current(self):
+        """The window of this session, begun at its first span or count."""
+        if not self.live:
+            self.window = Window()
+            self._used = {}
+            self.live = True
+        w = self.window
+        if not w.clock and _profiler_on():
+            w.mark_clock()
+        return w
+
+    def stamp_buffer(self, n, device):
+        """n int64 on `device`, a slice of a buffer kept from window to
+        window (allocated, zeroed, only when the kept ones are full)."""
+        key = str(device)
+        slabs = self._slabs.setdefault(key, [])
+        i, off = self._used.get(key, (0, 0))
+        while i < len(slabs) and off + n > slabs[i].numel():
+            i, off = i + 1, 0
+        if i == len(slabs):
+            slabs.append(torch.zeros(max(STAMP_SLAB, n), dtype=torch.int64,
+                                     device=device))
+        self._used[key] = (i, off + n)
+        return slabs[i][off:off + n]
+
+
+_REC = _Recorder()
+
+
+def span(name, stage=None, **attrs):
+    """A span `name` of class `stage` (None, "host" or "device") around a
+    `with` block: recorded while a profiler session records or inside
+    `recording()`; otherwise a shared do-nothing span. The span's
+    `set(**attrs)` adds attributes; its `stamps(...)` gives kernel B1 a
+    stamp buffer."""
+    if _REC.forced or _profiler_on():
+        if stage is not None and stage not in STAGES:
+            raise ValueError("span %s: stage %r is not one of %s"
+                             % (name, stage, STAGES))
+        return Span(_REC.current(), name, stage, attrs)
+    _REC.live = False
+    return _OFF
+
+
+def count(name, n=1):
+    """Add n to the counter `name` of the recording window, if any."""
+    if _REC.forced or _profiler_on():
+        _REC.current().add(name, n)
+        return
+    _REC.live = False
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans and counters in a new window for the block, without a
+    profiler session (tests, operators). Yields the window."""
+    with _REC.lock:
+        _REC.forced += 1
+        if _REC.forced == 1:
+            _REC.live = False
+    try:
+        yield _REC.current()
+    finally:
+        with _REC.lock:
+            _REC.forced -= 1
+        if not _REC.forced:
+            _REC.live = False
+
+
+def recorded():
+    """The newest window (`Window`) a profiler session or a `recording()`
+    block recorded, or None."""
+    return _REC.window
+
+
+def fold_b1_stamps(t, steps, n_stages):
+    """One launch of kernel B1 from its stamps (block 0's globaltimer, ns):
+    t[0] at the launch's start, t[1] after its prologue (and the grid
+    barrier that ends it), then for each stage of each step its first part
+    done (products or scores), its work done, and the grid barrier after
+    it passed. Returns {launch_ns, prologue_ns, work_ns, barrier_ns}, where
+    launch = prologue + work + barrier runs from the start to the last
+    barrier; barrier_ns is block 0's wait from its work done to the barrier
+    passed (the slowest block's lag and the barrier's own cost). None if
+    the stamps do not run forward (a buffer the launch did not fill)."""
+    t = np.asarray(t, np.int64)
+    if t.shape != (2 + 3 * steps * n_stages,) or (np.diff(t) < 0).any() \
+            or t[0] <= 0:
+        return None
+    passed = np.concatenate([t[1:2], t[4::3]])      # barrier exits
+    work = t[3::3] - passed[:-1]
+    barrier = t[4::3] - t[3::3]
+    return dict(launch_ns=int(t[-1] - t[0]), prologue_ns=int(t[1] - t[0]),
+                work_ns=int(work.sum()), barrier_ns=int(barrier.sum()))
+
+
+def clock_offset_us(window, events):
+    """µs to add to a span's time (ns / 1e3) to put it on the axis of a
+    trace whose `dv3.clock` events are `events` [(start µs, end µs)], in
+    order; None when they do not match the window's markers. Each marker's
+    time read inside it is matched to the event's middle; the tightest
+    event (the least time spent entering and leaving) gives the offset."""
+    if window is None or not window.clock or \
+            len(events) != len(window.clock):
+        return None
+    best = min(zip(window.clock, events), key=lambda m: m[1][1] - m[1][0])
+    (a, b), (s, e) = best
+    return 0.5 * (s + e) - 0.5 * (a + b) / 1e3
+
+
+# ---------------------------------------------------------------------------
+# profiler traces
+# ---------------------------------------------------------------------------
 
 
 class TraceWindow:

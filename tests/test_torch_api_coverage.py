@@ -54,6 +54,9 @@ FUSED = Skip("JAX picks XLA's scan or the Pallas kernel; the port always "
              "decodes through kernel B1 (its plain version on the CPU)")
 DTYPE = Skip("parameters are made in f32, JAX's default; the port's tree is "
              "an nn.Module, cast with `.to(dtype)`")
+STEP_TIMER = Skip("its interval counted checkpoint saves and evals as step "
+                  "time; cli.train reports steps/s from its steady clock, "
+                  "which leaves them out")
 STATE_DTYPE = Skip("the port's decode state takes `device`; the plain step "
                    "promotes the zero state to its inputs' dtype")
 
@@ -147,6 +150,13 @@ EXCEPTIONS = {
     ("dsp/reference_model.py", "*", None): Skip(
         "the numpy golden model the tests import from the JAX package; the "
         "port keeps only the consistency kernels its LWS needs"),
+    # tracing
+    ("utils/profiling.py", "StepTimer", None): STEP_TIMER,
+    ("utils/profiling.py", "StepTimer.__init__", None): STEP_TIMER,
+    ("utils/profiling.py", "StepTimer.tick", None): STEP_TIMER,
+    ("utils/profiling.py", "StepTimer.seconds_per_step", None): STEP_TIMER,
+    ("utils/profiling.py", "StepTimer.steps_per_second", None): STEP_TIMER,
+    ("utils/profiling.py", "StepTimer.report", None): STEP_TIMER,
 }
 
 
