@@ -11,6 +11,9 @@
 
 With `mesh=` (parallel/mesh.py) the batch is data-parallel over the mesh's
 "data" ranks: each runs the three stages on its rows.
+
+On the card the results go to the host into page-locked memory
+(`_pinned_to_host`).
 """
 
 import numpy as np
@@ -27,6 +30,8 @@ from .utils import profiling
 # frame sees the same converter context as an untrimmed run.
 BUCKET_DEC_STEPS = 16
 SLACK_DEC_STEPS = 8
+# byte alignment of each result's view in a call's page-locked slab
+SLAB_ALIGN = 256
 
 
 def _round_up(n, k):
@@ -101,6 +106,23 @@ def _gather_rows(mesh, tensors, lengths):
     return out
 
 
+def _pinned_to_host(tensors):
+    """Device tensors -> numpy arrays backed by one page-locked slab from
+    PyTorch's caching host allocator, a view of it a tensor: every copy
+    issued with non_blocking on the compute stream, one wait after the
+    last, no further copy. Results that callers keep hold their slab until
+    they are dropped, so no call writes into an earlier call's."""
+    sizes = [t.numel() * t.element_size() for t in tensors]
+    offsets = np.cumsum([0] + [_round_up(n, SLAB_ALIGN) for n in sizes])
+    slab = torch.empty(int(offsets[-1]), dtype=torch.uint8, pin_memory=True)
+    host = [slab[o:o + n].view(t.dtype).view(t.shape)
+            for o, n, t in zip(offsets, sizes, tensors)]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [h.numpy() for h in host]
+
+
 @torch.inference_mode()
 def tts_batch(params, cfg, ap: AudioProcessor, frontend_mod, texts, *,
               p=0.0, speaker_ids=None, max_decoder_steps=500,
@@ -121,6 +143,11 @@ def tts_batch(params, cfg, ap: AudioProcessor, frontend_mod, texts, *,
     input order, the pad rows dropped, as the JAX package's
     `tts_batch(mesh=)` does. Held to the one-process call and to JAX's by
     tests/test_torch_mesh.py::test_dp_tts_batch_matches_one_process_and_jax.
+
+    On the card the returned arrays are views of page-locked host memory,
+    one slab a call sized to its six results (about 62 MB at B = 32 and
+    LJSpeech lengths): a caller that keeps results keeps that much
+    page-locked memory until it drops them.
     """
     with profiling.span("dv3.tts_batch") as call:
         return _tts_batch(call, params, cfg, ap, frontend_mod, texts, p,
@@ -181,12 +208,10 @@ def _tts_batch(call, params, cfg, ap, frontend_mod, texts, p, speaker_ids,
         wav, dec_lengths, lengths = wav[..., 0], dec_lengths[:, 0], \
             lengths[:, 0]
     with profiling.span("dv3.tts.to_host", "host"):
-        wav_batch = wav.cpu().numpy()
-        mel = mel.cpu().numpy()
-        linear = linear.cpu().numpy()
-        align = align.cpu().numpy()
-        lengths = lengths.cpu().numpy()
-        dec_lengths = dec_lengths.cpu().numpy()
+        out = [wav, mel, linear, align, lengths, dec_lengths]
+        out = _pinned_to_host(out) if wav.is_cuda else \
+            [t.cpu().numpy() for t in out]
+        wav_batch, mel, linear, align, lengths, dec_lengths = out
 
     results = []
     time_up = getattr(cfg.converter, "time_upsampling", 1)
@@ -212,11 +237,14 @@ def _tts_batch(call, params, cfg, ap, frontend_mod, texts, p, speaker_ids,
 def _record_call(call, x, steps_asked, copied, results):
     """While a window records: the call's shape as it ran (rows, padded
     text length, decoder steps asked; the benchmark holds them to the
-    calls it traced), the bytes the copies to the host moved and the bytes
+    calls it traced), the bytes the copies to the host moved, those of
+    them that landed in page-locked memory (0 on the CPU) and the bytes
     of the slices returned."""
     call.set(rows=x.shape[0], text_padded=x.shape[1],
              steps_asked=steps_asked)
     profiling.count("tts.bytes_to_host", sum(a.nbytes for a in copied))
+    profiling.count("tts.bytes_pinned", sum(
+        a.nbytes for a in copied if torch.from_numpy(a).is_pinned()))
     profiling.count("tts.bytes_kept", sum(
         r[k].nbytes for r in results
         for k in ("waveform", "mel", "linear", "alignment")))

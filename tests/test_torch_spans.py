@@ -3,7 +3,8 @@
 tts_batch. Off, a span or a count keeps nothing and reads no clock; on
 (under `recording()` or a profiler session), one call of tts_batch gives
 one `dv3.tts_batch` span with its stages nested under it, each of its
-class, one call id, its shape and the bytes it copied; the spans line up
+class, one call id, its shape, the bytes it copied and those of them in
+page-locked memory (none on the CPU); the spans line up
 with the profiler's own events through the `dv3.clock` markers; kernel
 B1's stamps fold into prologue, work and barrier wait.
 
@@ -116,8 +117,10 @@ def test_one_call_gives_one_nested_span_tree(tiny):
     c = w.counters()
     kept = sum(r[k].nbytes for r in res
                for k in ("waveform", "mel", "linear", "alignment"))
-    assert sorted(c) == ["tts.bytes_kept", "tts.bytes_to_host"]
+    assert sorted(c) == ["tts.bytes_kept", "tts.bytes_pinned",
+                         "tts.bytes_to_host"]
     assert c["tts.bytes_kept"] == kept
+    assert c["tts.bytes_pinned"] == 0           # the CPU's plain copies
     # the six copies: waveform, mel, linear, alignment (whole buffers),
     # the text lengths (int64) and the decoded lengths (int32)
     hp = tiny[0]
@@ -214,7 +217,8 @@ def test_fold_b1_stamps():
 def test_b1_stamps_on_the_main_path(tiny):
     """tts_batch on the card under recording(): every chunk span holds one
     launch of B1 (as the kernel's own launch counter counts them) with its
-    stamps; the fold adds up."""
+    stamps; the fold adds up; every byte copied to the host landed in
+    page-locked memory."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     hp, cfg, params = tiny
@@ -232,3 +236,5 @@ def test_b1_stamps_on_the_main_path(tiny):
         == split["launch_ns"]
     assert split["work_ns"] > 0 and split["barrier_ns"] > 0
     assert len(res) == len(TEXTS)
+    c = w.counters()
+    assert c["tts.bytes_pinned"] == c["tts.bytes_to_host"] > 0
