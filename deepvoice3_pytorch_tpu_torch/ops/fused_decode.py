@@ -380,6 +380,27 @@ def b1_stages(plan, C, out_dim):
     return stages, widths
 
 
+def b1_stage_kinds(stages):
+    """The kind of each stage, by the op-table entry it carries out:
+    "LINEAR", "LINEAR2", "GLU", "HIGHWAY" or "ATTN"; the last stage
+    (last_conv with fc folded in), which carries no entry of its own,
+    counts as "LINEAR". Read from the stages' words, on the host."""
+    kinds = []
+    for st in stages:
+        w = st.words
+        if w[S_KIND] == K_ATT:
+            kinds.append("ATTN")
+        elif w[S_EPI] == E_GLU:
+            kinds.append("GLU")
+        elif w[S_EPI] == E_HW:
+            kinds.append("HIGHWAY")
+        elif w[S_EPI] == E_LIN and w[S_IN2] >= 0:
+            kinds.append("LINEAR2")
+        else:
+            kinds.append("LINEAR")
+    return tuple(kinds)
+
+
 def attention_weights(plan, stages, C):
     """The attention layers' projections, stacked for attention_operands:
     (n_att, 2, E, C + 1) float64, [Wq^T | bq] and [Wo | 0] of each layer
@@ -1232,14 +1253,15 @@ def _decode_chunks(decoder_cls, params, cfg, inputs, mask, initial_input,
         outs = dec.new_outputs(n_chunks * chunk)
         latch = torch.zeros(dec.B, dtype=torch.bool, device=dec.device)
     # while a window records, each launch of B1 stamps its stages
-    n_stages = len(dec.layout.stages) if isinstance(dec, FusedDecoder) \
-        else 0
+    kernel = isinstance(dec, FusedDecoder)
+    n_stages = len(dec.layout.stages) if kernel else 0
+    kinds = b1_stage_kinds(dec.layout.stages) if kernel else None
     c = 0
     while c < n_chunks and not (early_exit and bool(latch.all())):
         t0 = c * chunk
         with profiling.span("dv3.decode.chunk", "device") as sp:
             dec.launch(carry, outs, t0, chunk,
-                       trace=sp.stamps(n_stages, chunk, dec.device))
+                       trace=sp.stamps(n_stages, chunk, dec.device, kinds))
             if early_exit:
                 latch |= chunk_latch(outs[2][:, t0:t0 + chunk], t0,
                                      min_steps)

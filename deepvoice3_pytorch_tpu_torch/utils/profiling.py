@@ -9,7 +9,8 @@ keeps its own copy).
     kept in memory while a torch.profiler session records, or inside
     `recording()`; `recorded()` gives the newest such window;
   * fold_b1_stamps — where a launch of kernel B1 spent its time, from the
-    stamps the kernel writes;
+    stamps the kernel writes (`fold_b1_stamps_by_kind`: by its stages'
+    kinds);
   * TraceWindow — a torch.profiler trace of the CPU and the card over a step
     range, written as one Chrome trace (viewable in Perfetto) per window.
 
@@ -83,15 +84,17 @@ class Span:
     def set(self, **attrs):
         self.attrs.update(attrs)
 
-    def stamps(self, n_stages, steps, device):
+    def stamps(self, n_stages, steps, device, kinds=None):
         """A stamp buffer for one launch of kernel B1 of `steps` steps of
         `n_stages` stages (2 + 3 * steps * n_stages int64 on `device`),
         kept with the window and folded when the window is read; None for
-        the plain decoder (n_stages 0)."""
+        the plain decoder (n_stages 0). kinds: the kind of each stage
+        (`fused_decode.b1_stage_kinds`), kept with the buffer for the
+        window's split by kind."""
         if not n_stages:
             return None
         buf = _REC.stamp_buffer(2 + 3 * steps * n_stages, device)
-        self._window.stamps.append((buf, steps, n_stages))
+        self._window.stamps.append((buf, steps, n_stages, kinds))
         return buf
 
     def __enter__(self):
@@ -134,7 +137,7 @@ class _Off:
     def set(self, **attrs):
         pass
 
-    def stamps(self, n_stages, steps, device):
+    def stamps(self, n_stages, steps, device, kinds=None):
         return None
 
 
@@ -150,7 +153,7 @@ class Window:
     def __init__(self):
         self.spans = []
         self.clock = []
-        self.stamps = []        # (int64 buffer, steps, stages)
+        self.stamps = []        # (int64 buffer, steps, stages[, kinds])
         self.n_calls = 0
         self._counts = {}
 
@@ -170,20 +173,38 @@ class Window:
 
     def b1_split(self):
         """Kernel B1's launches in the window folded (`fold_b1_stamps`) and
-        summed: launches, launch_ns, prologue_ns, work_ns, barrier_ns; None
-        without stamps. Reads the buffers back (waits for the device)."""
+        summed: launches, launch_ns, prologue_ns, work_ns, barrier_ns, and
+        where every launch's buffer was kept with its stages' kinds,
+        `kinds`: {kind: {work_ns, barrier_ns}} (`fold_b1_stamps_by_kind`),
+        which sum to the totals; None without stamps. Reads the buffers
+        back (waits for the device)."""
         if not self.stamps:
             return None
         total = dict(launches=0, launch_ns=0, prologue_ns=0, work_ns=0,
                      barrier_ns=0)
-        for buf, steps, n_stages in self.stamps:
-            one = fold_b1_stamps(buf.cpu().numpy(), steps, n_stages)
+        by_kind, all_kinds = {}, True
+        for buf, steps, n_stages, *kinds in self.stamps:
+            t = buf.cpu().numpy()
+            one = fold_b1_stamps(t, steps, n_stages)
             if one is None:
                 continue
             total["launches"] += 1
             for k, v in one.items():
                 total[k] += v
-        return total if total["launches"] else None
+            kinds = kinds[0] if kinds else None
+            if kinds is None:
+                all_kinds = False
+                continue
+            for kind, part in fold_b1_stamps_by_kind(
+                    t, steps, n_stages, kinds).items():
+                acc = by_kind.setdefault(kind, dict(work_ns=0, barrier_ns=0))
+                for k, v in part.items():
+                    acc[k] += v
+        if not total["launches"]:
+            return None
+        if all_kinds:
+            total["kinds"] = by_kind
+        return total
 
 
 class _Recorder:
@@ -277,6 +298,17 @@ def recorded():
     return _REC.window
 
 
+def _b1_stage_times(t, steps, n_stages):
+    """(work, barrier) ns of each stage of each step of one launch, in
+    launch order, from its stamps; None if they do not run forward."""
+    t = np.asarray(t, np.int64)
+    if t.shape != (2 + 3 * steps * n_stages,) or (np.diff(t) < 0).any() \
+            or t[0] <= 0:
+        return None
+    passed = np.concatenate([t[1:2], t[4::3]])      # barrier exits
+    return t, t[3::3] - passed[:-1], t[4::3] - t[3::3]
+
+
 def fold_b1_stamps(t, steps, n_stages):
     """One launch of kernel B1 from its stamps (block 0's globaltimer, ns):
     t[0] at the launch's start, t[1] after its prologue (and the grid
@@ -287,15 +319,33 @@ def fold_b1_stamps(t, steps, n_stages):
     barrier; barrier_ns is block 0's wait from its work done to the barrier
     passed (the slowest block's lag and the barrier's own cost). None if
     the stamps do not run forward (a buffer the launch did not fill)."""
-    t = np.asarray(t, np.int64)
-    if t.shape != (2 + 3 * steps * n_stages,) or (np.diff(t) < 0).any() \
-            or t[0] <= 0:
+    got = _b1_stage_times(t, steps, n_stages)
+    if got is None:
         return None
-    passed = np.concatenate([t[1:2], t[4::3]])      # barrier exits
-    work = t[3::3] - passed[:-1]
-    barrier = t[4::3] - t[3::3]
+    t, work, barrier = got
     return dict(launch_ns=int(t[-1] - t[0]), prologue_ns=int(t[1] - t[0]),
                 work_ns=int(work.sum()), barrier_ns=int(barrier.sum()))
+
+
+def fold_b1_stamps_by_kind(t, steps, n_stages, kinds):
+    """One launch's work and barrier wait (as `fold_b1_stamps` counts them)
+    by the kind of the stage they follow: {kind: {work_ns, barrier_ns}},
+    kinds[s] the kind of stage s of every step. The kinds' sums are the
+    launch's work_ns and barrier_ns. None where `fold_b1_stamps` is."""
+    if len(kinds) != n_stages:
+        raise ValueError("%d kinds for %d stages" % (len(kinds), n_stages))
+    got = _b1_stage_times(t, steps, n_stages)
+    if got is None:
+        return None
+    _, work, barrier = got
+    work = work.reshape(steps, n_stages).sum(axis=0)
+    barrier = barrier.reshape(steps, n_stages).sum(axis=0)
+    out = {}
+    for kind, w, b in zip(kinds, work.tolist(), barrier.tolist()):
+        acc = out.setdefault(kind, dict(work_ns=0, barrier_ns=0))
+        acc["work_ns"] += int(w)
+        acc["barrier_ns"] += int(b)
+    return out
 
 
 def clock_offset_us(window, events):

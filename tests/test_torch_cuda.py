@@ -1251,6 +1251,54 @@ def test_tts_batch_at_hop_128_gpu_matches_cpu(dev):
         assert float(sc[0]) <= 1.05 * float(sc[1]), sc
 
 
+def test_nyanko_b1_stamps_fold_by_kind(dev):
+    """One recorded nyanko tts_batch at B = 32 and the preset's widths:
+    each B1 launch's stamps are kept with the kinds of its 25 stages a
+    step (16 of them HIGHWAY), the kinds sum to the totals, the HIGHWAY
+    share of the launches lies between 0 and 1, and the totals are those
+    of the same stamps folded without kinds."""
+    import json
+    import os
+
+    from deepvoice3_pytorch_tpu_torch import hparams, model_builder
+    from deepvoice3_pytorch_tpu_torch import synthesis
+    from deepvoice3_pytorch_tpu_torch.dsp.audio import AudioProcessor
+    from deepvoice3_pytorch_tpu_torch.frontend import en
+    from deepvoice3_pytorch_tpu_torch.utils import profiling
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    hp = hparams.default_hparams()
+    with open(os.path.join(repo, "presets", "nyanko_ljspeech.json")) as f:
+        hp.parse_json(f.read())
+    cfg, params = model_builder.build_model(hp, en.n_vocab, seed=3,
+                                            device=dev)
+    ap = AudioProcessor(hp)
+    texts = ["sentence number %d of a batch, with a few more words." % i
+             for i in range(32)]
+
+    def call():
+        return synthesis.tts_batch(params, cfg, ap, en, texts,
+                                   max_decoder_steps=64, early_exit=False)
+
+    call()                                        # build the kernels
+    with profiling.recording() as w:
+        call()
+    assert len(w.stamps) == 2                     # two chunks of 32 steps
+    for _, steps, n_stages, kinds in w.stamps:
+        assert n_stages == len(kinds) == 25 and steps == 32
+        assert kinds.count("HIGHWAY") == 16
+    split = w.b1_split()
+    plain = profiling.Window()
+    plain.stamps = [entry[:3] for entry in w.stamps]
+    assert {k: v for k, v in split.items() if k != "kinds"} == \
+        plain.b1_split()
+    for k in ("work_ns", "barrier_ns"):
+        assert sum(p[k] for p in split["kinds"].values()) == split[k]
+    hw = split["kinds"]["HIGHWAY"]
+    share = (hw["work_ns"] + hw["barrier_ns"]) / split["launch_ns"]
+    assert 0 < share < 1, json.dumps(split)
+
+
 def test_tp2_forward_through_b3_matches_plain(dev, tmp_path):
     """Tensor parallelism on the card: two ranks sharing it over gloo (CUDA
     tensors staged through pinned host memory), the teacher-forced forward
