@@ -60,15 +60,26 @@
 //        f32, so the softmax, the first argmax and the output are the same.
 //        Otherwise (not monotonic, or no unpadded key in the window) all Tk
 //        keys.
-// What bounds a stage is latency (the barrier and a few dependent trips to
-// L2), so a stage reads its tables and the block's last_attended from
-// shared memory, copied there at the launch's start, and writes all it
-// makes in one epilogue: its output, the ring row of the conv after it,
-// the decoder state. Activations live in a workspace in device memory
-// between stages (a buffer per stage, read through L2); inside a stage a
-// warp's lanes split the reduction dimension, the warps split rows and
-// column quads (and the reduction too when there are few rows), and
-// partial sums are added in a fixed order, so a run is deterministic. Ring
+// What bounds a stage is the barrier and its trips to L2 (their latency,
+// and for a wide stage L2's bandwidth), so a stage reads its tables and
+// the block's last_attended from shared memory, copied there at the
+// launch's start, and writes all it makes in one epilogue: its output,
+// the ring row of the conv after it, the decoder state. Activations live
+// in a workspace in device memory between stages (a buffer per stage,
+// read through L2); inside a stage a warp's lanes split the reduction
+// dimension, the warps split rows and column quads (and the reduction too
+// when there are few rows), and partial sums are added in a fixed order,
+// so a run is deterministic. A lane reads its inputs FB values a row at
+// once and issues the next chunk's loads before the FMAs of the one it
+// holds (dot_rows), so that a stage of several input segments (a k = 3
+// conv's two past taps and its incoming frame: 96 KB a block from L2)
+// waits on L2 about once rather than once a segment. The past taps are
+// final before the barrier that precedes the stage, but loading them
+// while that barrier is pending measured slower: every block reads every
+// row's input, so the stage's reads are bound by L2's bandwidth, and moved
+// into the barrier they delayed it by about what they saved. Registers
+// are the budget (one 512-thread block an SM: 128 a thread): what lives
+// through the stage loop is read where used rather than kept. Ring
 // buffers of every row live in device memory for the launch: copied in
 // from the carry (logical order) at the start, and stored back in logical
 // order at the end, so the carry has the JAX kernel's layout.
@@ -85,6 +96,8 @@ constexpr int NW = NT / 32;      // warps per block
 constexpr int RB = 32;           // rows of a stage's matvec in one pass
 constexpr int WIN_MAX = 64;      // most keys of a window computed as one
 constexpr int ST_WORDS = 32;     // ops/fused_decode.py:ST_WORDS
+constexpr int FB = 4;            // input values a lane loads of each row at
+                                 // once
 constexpr int RING_WORDS = 4;    // rows, width, offset in a carry row,
                                  // offset in a scratch row
 
@@ -278,8 +291,49 @@ __device__ __forceinline__ void load_w(const float* w, float* v) {
   }
 }
 
+// FB values of each row a lane, from k on by the lane stride, below hi
+// (zero past it): all loads at once, so that their trips to L2 overlap.
+__device__ __forceinline__ void load_batch(const float* x0, const float* x1,
+                                           int k, int hi, float (&v0)[FB],
+                                           float (&v1)[FB]) {
+#pragma unroll
+  for (int i = 0; i < FB; ++i) {
+    const int ki = k + 32 * i;
+    v0[i] = ki < hi ? __ldcg(x0 + ki) : 0.0f;
+    v1[i] = ki < hi ? __ldcg(x1 + ki) : 0.0f;
+  }
+}
+
+// acc{0,1}[c] += v{0,1}[i] * W[k + 32 i][c] for the batch's values below hi,
+// in k order.
+template <int QW>
+__device__ __forceinline__ void fma_batch(const float* W, int ncp, int k,
+                                          int hi, const float (&v0)[FB],
+                                          const float (&v1)[FB], float* acc0,
+                                          float* acc1) {
+#pragma unroll
+  for (int i = 0; i < FB; ++i) {
+    const int ki = k + 32 * i;
+    if (ki < hi) {
+      float w[QW];
+      load_w<QW>(W + (size_t)ki * ncp, w);
+#pragma unroll
+      for (int c = 0; c < QW; ++c) {
+        acc0[c] = fmaf(v0[i], w[c], acc0[c]);
+        acc1[c] = fmaf(v1[i], w[c], acc1[c]);
+      }
+    }
+  }
+}
+
 // acc{0,1}[c] += sum over k in [k0, k1) of in(row r{0,1}, k) * W[k][c] for
-// the QW columns at W; a warp's lanes take every 32nd k.
+// the QW columns at W; a warp's lanes take every 32nd k. The warp's range
+// is read in chunks of 32 FB consecutive k of one segment, FB values a lane
+// and row (load_batch), and each chunk's loads are issued before the
+// previous chunk's FMAs: the trips to L2 of a stage's segments (a k = 3
+// conv's two past taps and its incoming frame, LINEAR2's x and Q) overlap,
+// so the stage waits on L2 about once. Each accumulator still takes its
+// terms in k order, so the sums are those of a load per k.
 template <int QW>
 __device__ __forceinline__ void dot_rows(const B1Args& a, const int* st,
                                          int step, int r0, int r1,
@@ -287,26 +341,39 @@ __device__ __forceinline__ void dot_rows(const B1Args& a, const int* st,
                                          int k1, int lane, float* acc0,
                                          float* acc1) {
   const int nseg = n_taps(st) + 1 + (st[S_IN2] >= 0);
-  int kb = 0;
-  for (int g = 0; g < nseg; ++g) {
-    const Seg sg = segment(a, st, step, g);
-    const int lo = max(k0, kb), hi = min(k1, kb + sg.len);
-    if (lo < hi) {
-      const float* x0 = sg.p + r0 * sg.stride - kb;
-      const float* x1 = sg.p + r1 * sg.stride - kb;
-#pragma unroll 4
-      for (int k = lo + lane; k < hi; k += 32) {
-        const float v0 = __ldcg(x0 + k), v1 = __ldcg(x1 + k);
-        float w[QW];
-        load_w<QW>(W + (size_t)k * ncp, w);
-#pragma unroll
-        for (int c = 0; c < QW; ++c) {
-          acc0[c] = fmaf(v0, w[c], acc0[c]);
-          acc1[c] = fmaf(v1, w[c], acc1[c]);
-        }
-      }
+  // the chunk [base, min(base + 32 FB, hi)) of segment g; next() moves to
+  // the warp's next chunk, false past its last
+  int g = -1, kb = 0, len = 0, base = 0, hi = 0;
+  const float *x0 = nullptr, *x1 = nullptr;
+  auto next = [&]() {
+    base += 32 * FB;
+    while (base >= hi) {
+      kb += len;
+      if (++g >= nseg) return false;
+      const Seg sg = segment(a, st, step, g);
+      len = sg.len;
+      base = max(k0, kb);
+      hi = min(k1, kb + len);
+      x0 = sg.p + r0 * sg.stride - kb;
+      x1 = sg.p + r1 * sg.stride - kb;
     }
-    kb += sg.len;
+    return true;
+  };
+  if (!next()) return;
+  float v0[FB], v1[FB];
+  load_batch(x0, x1, base + lane, hi, v0, v1);
+  while (true) {
+    const int k = base + lane, k_hi = hi;
+    const bool more = next();
+    float n0[FB], n1[FB];
+    if (more) load_batch(x0, x1, base + lane, hi, n0, n1);
+    fma_batch<QW>(W, ncp, k, k_hi, v0, v1, acc0, acc1);
+    if (!more) break;
+#pragma unroll
+    for (int i = 0; i < FB; ++i) {
+      v0[i] = n0[i];
+      v1[i] = n1[i];
+    }
   }
 }
 
@@ -617,7 +684,7 @@ __device__ void att_row(const B1Args& a, const int* st, int step, int b,
       w.qout != nullptr ? __ldcg(w.fpe + b * w.fpe_stride + c0) : 0.0f;
   const float ave0 = !first_layer && tid < Tk ? __ldcg(ave + tid) : 0.0f;
   __syncthreads();   // win and red are free again
-  constexpr int VPRE = 8;
+  constexpr int VPRE = 4;     // a 1-back / 3-ahead window's keys
   float vpre[VPRE];
   bool windowed = false;
   if (mono && n > 0 && n <= WIN_MAX) {
@@ -766,12 +833,24 @@ __device__ void att_row(const B1Args& a, const int* st, int step, int b,
   }
 }
 
+// A thread's index in the grid, and the grid's threads: read where used
+// rather than kept through the stage loop.
+__device__ __forceinline__ unsigned grid_tid() {
+  return blockIdx.x * NT + threadIdx.x;
+}
+__device__ __forceinline__ unsigned grid_threads() { return gridDim.x * NT; }
+
+// Rows of the batch a block attends to: blockIdx.x + r * gridDim.x.
+__device__ __forceinline__ int rows_here(const B1Args& a) {
+  return (a.B - (int)blockIdx.x + gridDim.x - 1) / gridDim.x;
+}
+
 // The query-position rows of `step` for every row, into the workspace.
-__device__ void fpe_rows(const B1Args& a, int step, unsigned gtid,
-                         unsigned gthreads) {
+__device__ void fpe_rows(const B1Args& a, int step) {
   int stride;
   float* fpe = buf_ptr(a, BUF_FPE, step, &stride);
-  for (unsigned i = gtid; i < (unsigned)(a.B * a.C); i += gthreads) {
+  for (unsigned i = grid_tid(); i < (unsigned)(a.B * a.C);
+       i += grid_threads()) {
     const int b = i / a.C, c = i % a.C;
     const int t = a.pos ? min(__ldcg(a.pos + b) + step + 1, a.fpe_rows - 1)
                         : a.t0 + step;
@@ -794,9 +873,6 @@ __global__ void __launch_bounds__(NT, 1) fused_decode_kernel(const B1Args a) {
   float* part = ys + RB * a.max_ncp;
   float* win = part + NW * 8;
   float* red = win + WIN_MAX;
-  const unsigned gtid = blockIdx.x * NT + threadIdx.x;
-  const unsigned gthreads = gridDim.x * NT;
-  const int rows_here = (a.B - (int)blockIdx.x + gridDim.x - 1) / gridDim.x;
   unsigned target = 0;
   stamp(a, 0);
 
@@ -820,7 +896,7 @@ __global__ void __launch_bounds__(NT, 1) fused_decode_kernel(const B1Args a) {
   for (int s = threadIdx.x; s < a.n_stages; s += NT)
     block_units(ism + s * ST_WORDS, sm_units(a) + 2 * s,
                 sm_units(a) + 2 * s + 1);
-  for (int i = threadIdx.x; i < rows_here * a.n_la; i += NT)
+  for (int i = threadIdx.x; i < rows_here(a) * a.n_la; i += NT)
     sm_la(a)[i] = a.la[(blockIdx.x + (i / a.n_la) * gridDim.x) * a.n_la +
                        i % a.n_la];
   const float4* wsrc = reinterpret_cast<const float4*>(
@@ -831,7 +907,8 @@ __global__ void __launch_bounds__(NT, 1) fused_decode_kernel(const B1Args a) {
   for (int r = 0; r < a.n_ring; ++r) {
     const int* d = a.rings + RING_WORDS * r;
     const unsigned n = __ldg(d) * __ldg(d + 1);
-    for (unsigned i = gtid; i < (unsigned)a.B * n; i += gthreads) {
+    for (unsigned i = grid_tid(); i < (unsigned)a.B * n;
+         i += grid_threads()) {
       const int b = i / n, local = i % n;
       a.scratch[(size_t)b * a.scratch_floats + __ldg(d + 3) + local] =
           a.ring[(size_t)b * a.ring_floats + __ldg(d + 2) + local];
@@ -840,9 +917,10 @@ __global__ void __launch_bounds__(NT, 1) fused_decode_kernel(const B1Args a) {
   __syncthreads();
   int ps;
   float* prev0 = buf_ptr(a, BUF_PREV0, 0, &ps);
-  for (unsigned i = gtid; i < (unsigned)(a.B * a.out_dim); i += gthreads)
+  for (unsigned i = grid_tid(); i < (unsigned)(a.B * a.out_dim);
+       i += grid_threads())
     prev0[(i / a.out_dim) * ps + i % a.out_dim] = a.prev[i];
-  fpe_rows(a, 0, gtid, gthreads);
+  fpe_rows(a, 0);
   grid_sync<false>(a.sync, target);
   stamp(a, 1);
 
@@ -854,11 +932,10 @@ __global__ void __launch_bounds__(NT, 1) fused_decode_kernel(const B1Args a) {
         mv_stage(a, st, s, step, wsm, ys, part, mid);
         // beside the last stage: the next step's position rows
         if (st[S_EPI] == E_LAST && step + 1 < a.steps)
-          fpe_rows(a, step + 1, gtid, gthreads);
+          fpe_rows(a, step + 1);
       } else {
-        for (int r = 0; r < rows_here; ++r)
-          att_row(a, st, step, blockIdx.x + r * gridDim.x, r, win, red,
-                  mid);
+        for (int b = blockIdx.x, r = 0; b < a.B; b += gridDim.x, ++r)
+          att_row(a, st, step, b, r, win, red, mid);
       }
       stamp(a, mid + 1);
       if (s + 1 == a.n_stages)   // every ring's oldest frame moves a slot
@@ -877,7 +954,8 @@ __global__ void __launch_bounds__(NT, 1) fused_decode_kernel(const B1Args a) {
     const int* d = sm_rings(a) + RING_WORDS * r;
     const int rows = d[0], width = d[1];
     const unsigned n = rows * width;
-    for (unsigned i = gtid; i < (unsigned)a.B * n; i += gthreads) {
+    for (unsigned i = grid_tid(); i < (unsigned)a.B * n;
+         i += grid_threads()) {
       const int b = i / n, local = i % n, row = local / width;
       a.ring[(size_t)b * a.ring_floats + d[2] + local] = __ldcg(
           a.scratch + (size_t)b * a.scratch_floats + d[3] +
@@ -886,13 +964,14 @@ __global__ void __launch_bounds__(NT, 1) fused_decode_kernel(const B1Args a) {
   }
   int ls;
   const float* last = buf_ptr(a, BUF_PREV0 + (a.steps & 1), 0, &ls);
-  for (unsigned i = gtid; i < (unsigned)(a.B * a.out_dim); i += gthreads)
+  for (unsigned i = grid_tid(); i < (unsigned)(a.B * a.out_dim);
+       i += grid_threads())
     a.prev[i] = __ldcg(last + (i / a.out_dim) * ls + i % a.out_dim);
-  for (int i = threadIdx.x; i < rows_here * a.n_la; i += NT)
+  for (int i = threadIdx.x; i < rows_here(a) * a.n_la; i += NT)
     a.la[(blockIdx.x + (i / a.n_la) * gridDim.x) * a.n_la + i % a.n_la] =
         sm_la(a)[i];
   if (a.pos != nullptr)
-    for (unsigned b = gtid; b < (unsigned)a.B; b += gthreads)
+    for (unsigned b = grid_tid(); b < (unsigned)a.B; b += grid_threads())
       a.pos[b] = min(__ldcg(a.pos + b) + a.steps, 1 << 30);
 
   // the last block out leaves the counters at zero for the next launch

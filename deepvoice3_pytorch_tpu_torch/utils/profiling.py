@@ -43,6 +43,8 @@ CLOCK = "dv3.clock"
 CLOCK_MARKS = 3     # the first record_function of a session is slow and
 #                     lopsided; the reader aligns by the tightest marker
 STAMP_SLAB = 1 << 20    # int64 entries of a device buffer of B1 stamps
+# what fold_b1_stamps_by_kind gives a kind: work = products + epilogue
+KIND_PARTS = ("work_ns", "products_ns", "epilogue_ns", "barrier_ns")
 STAGES = ("host", "device")
 
 
@@ -175,9 +177,10 @@ class Window:
         """Kernel B1's launches in the window folded (`fold_b1_stamps`) and
         summed: launches, launch_ns, prologue_ns, work_ns, barrier_ns, and
         where every launch's buffer was kept with its stages' kinds,
-        `kinds`: {kind: {work_ns, barrier_ns}} (`fold_b1_stamps_by_kind`),
-        which sum to the totals; None without stamps. Reads the buffers
-        back (waits for the device)."""
+        `kinds`: {kind: {work_ns, products_ns, epilogue_ns, barrier_ns}}
+        (`fold_b1_stamps_by_kind`), whose work and barrier sum to the
+        totals; None without stamps. Reads the buffers back (waits for the
+        device)."""
         if not self.stamps:
             return None
         total = dict(launches=0, launch_ns=0, prologue_ns=0, work_ns=0,
@@ -197,7 +200,7 @@ class Window:
                 continue
             for kind, part in fold_b1_stamps_by_kind(
                     t, steps, n_stages, kinds).items():
-                acc = by_kind.setdefault(kind, dict(work_ns=0, barrier_ns=0))
+                acc = by_kind.setdefault(kind, dict.fromkeys(KIND_PARTS, 0))
                 for k, v in part.items():
                     acc[k] += v
         if not total["launches"]:
@@ -299,14 +302,16 @@ def recorded():
 
 
 def _b1_stage_times(t, steps, n_stages):
-    """(work, barrier) ns of each stage of each step of one launch, in
-    launch order, from its stamps; None if they do not run forward."""
+    """(stamps, work, barrier, products) ns of each stage of each step of
+    one launch, in launch order, from its stamps; None if they do not run
+    forward."""
     t = np.asarray(t, np.int64)
     if t.shape != (2 + 3 * steps * n_stages,) or (np.diff(t) < 0).any() \
             or t[0] <= 0:
         return None
     passed = np.concatenate([t[1:2], t[4::3]])      # barrier exits
-    return t, t[3::3] - passed[:-1], t[4::3] - t[3::3]
+    return (t, t[3::3] - passed[:-1], t[4::3] - t[3::3],
+            t[2::3] - passed[:-1])
 
 
 def fold_b1_stamps(t, steps, n_stages):
@@ -322,29 +327,35 @@ def fold_b1_stamps(t, steps, n_stages):
     got = _b1_stage_times(t, steps, n_stages)
     if got is None:
         return None
-    t, work, barrier = got
+    t, work, barrier, _ = got
     return dict(launch_ns=int(t[-1] - t[0]), prologue_ns=int(t[1] - t[0]),
                 work_ns=int(work.sum()), barrier_ns=int(barrier.sum()))
 
 
 def fold_b1_stamps_by_kind(t, steps, n_stages, kinds):
     """One launch's work and barrier wait (as `fold_b1_stamps` counts them)
-    by the kind of the stage they follow: {kind: {work_ns, barrier_ns}},
-    kinds[s] the kind of stage s of every step. The kinds' sums are the
-    launch's work_ns and barrier_ns. None where `fold_b1_stamps` is."""
+    by the kind of the stage they follow: {kind: {work_ns, products_ns,
+    epilogue_ns, barrier_ns}}, kinds[s] the kind of stage s of every step.
+    A stage's work splits at its first stamp into products_ns (from the
+    barrier before it to its products done: an MV stage's matrix-vector
+    product, an ATT stage's scores) and epilogue_ns (the rest of its work),
+    which sum to work_ns. The kinds' sums are the launch's work_ns and
+    barrier_ns. None where `fold_b1_stamps` is."""
     if len(kinds) != n_stages:
         raise ValueError("%d kinds for %d stages" % (len(kinds), n_stages))
     got = _b1_stage_times(t, steps, n_stages)
     if got is None:
         return None
-    _, work, barrier = got
-    work = work.reshape(steps, n_stages).sum(axis=0)
-    barrier = barrier.reshape(steps, n_stages).sum(axis=0)
+    _, work, barrier, products = got
+    parts = {"work_ns": work, "products_ns": products,
+             "epilogue_ns": work - products, "barrier_ns": barrier}
+    parts = {k: v.reshape(steps, n_stages).sum(axis=0).tolist()
+             for k, v in parts.items()}
     out = {}
-    for kind, w, b in zip(kinds, work.tolist(), barrier.tolist()):
-        acc = out.setdefault(kind, dict(work_ns=0, barrier_ns=0))
-        acc["work_ns"] += int(w)
-        acc["barrier_ns"] += int(b)
+    for s, kind in enumerate(kinds):
+        acc = out.setdefault(kind, dict.fromkeys(KIND_PARTS, 0))
+        for k in KIND_PARTS:
+            acc[k] += int(parts[k][s])
     return out
 
 

@@ -455,16 +455,36 @@ def test_stage_program_matches_plain_decode(name, grid):
     ring buffers, speaker biases, encoded positions, the monotonic window
     with padded rows), blocks owning uneven column slices, against the
     plain decode over 10 steps."""
+    stage_program_against_plain(name, grid, 10)
+
+
+def stage_program_against_plain(name, grid, steps):
+    """run_stages of a tiny decoder of family `name` on `grid` blocks
+    against the plain decode, both one chunk of `steps` frames (whole
+    chunks of 32 would run the plain carry on past `steps`)."""
     dc, pd, fi, mask = tiny_decoder(name)
     plan, lay = fd.packed_plan(pd, dc, grid, SMEM)
+    assert fi["fpe_table"].shape[0] >= steps
     init = torch.zeros(3, dc.in_dim * dc.r)
-    got, la = run_stages(plan, lay, fi, mask, init, 10)
-    want = fd.fused_decode_plain(pd, dc, fi, mask, init, 10, 2,
-                                 early_exit=False)
+    got, la = run_stages(plan, lay, fi, mask, init, steps)
+    want = fd.fused_decode_plain(pd, dc, fi, mask, init, steps, 2,
+                                 early_exit=False, chunk=steps)
     for a, b in zip(got, want[:4]):
         assert float((a - b).abs().max()) <= 1e-4 * max(
             1.0, float(b.abs().max()))
     assert torch.equal(la, want.last_attended.long())
+    return plan
+
+
+@pytest.mark.parametrize("name,grid", [("nyanko", 7), ("deepvoice3", 5),
+                                       ("deepvoice3_multispeaker", 3)])
+def test_stage_program_matches_plain_decode_across_the_ring_wrap(name, grid):
+    """The stage program over 60 steps, more than the longest ring has
+    slots (a dilation-27 conv keeps 54 past frames in 55 slots), so every
+    slot is written and its taps read again after the ring wraps: still
+    the plain decode's frames, run as one chunk of 60 steps."""
+    plan = stage_program_against_plain(name, grid, 60)
+    assert max(r for r, _, _ in plan.buffers) + 1 == 55
 
 
 @pytest.mark.parametrize("name", ["deepvoice3", "nyanko",

@@ -253,6 +253,139 @@ def test_fused_decode_preset_widths(dev, preset, off_chip):
     assert torch.equal(got.last_attended, want.last_attended)
 
 
+def _preset_decoder(dev, preset, B, Tk, steps, seed=3):
+    """A preset's decoder at full width (seeded weights) over random
+    encoder outputs of B rows (lengths Tk // 2 .. Tk; speakers 7 b mod n
+    for a multi-speaker preset), with the same in float64: a dict of cfg,
+    pd, fi, lengths, mask, se and pd64, fi64, se64, enc (the float32
+    encoder outputs)."""
+    import copy
+    import os
+
+    from deepvoice3_pytorch_tpu_torch import hparams, model_builder
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    hp = hparams.default_hparams()
+    with open(os.path.join(repo, "presets", preset + ".json")) as f:
+        hp.parse_json(f.read())
+    cfg, params = model_builder.build_model(hp, 149, seed=seed, device=dev)
+    g = torch.Generator().manual_seed(seed + 1)
+    width = (cfg.decoder.channels if cfg.builder == "nyanko"
+             else cfg.decoder.embed_dim)
+    enc = tuple(torch.randn(B, Tk, width, generator=g).to(dev) * 0.5
+                for _ in range(2))
+    lengths = torch.randint(Tk // 2, Tk + 1, (B,), generator=g).to(dev)
+    pos = torch.arange(1, Tk + 1, device=dev)[None].repeat(B, 1)
+    pos = torch.where(pos <= lengths[:, None], pos, torch.zeros_like(pos))
+    se = (builder.embed_speakers(params, cfg, (7 * torch.arange(
+        B, device=dev)) % cfg.n_speakers) if cfg.n_speakers > 1 else None)
+    pd, fam = params["decoder"], cfg.family
+    pd64 = copy.deepcopy(pd).double()
+    se64 = None if se is None else se.double()
+    return dict(
+        cfg=cfg, pd=pd, pd64=pd64, lengths=lengths, se=se, se64=se64,
+        enc=enc, mask=core.get_mask_from_lengths(lengths, Tk),
+        fi=fam.fused_decode_inputs(pd, cfg.decoder, enc, pos, steps,
+                                   speaker_embed=se),
+        fi64=fam.fused_decode_inputs(pd64, cfg.decoder,
+                                     tuple(e.double() for e in enc), pos,
+                                     steps, speaker_embed=se64))
+
+
+def _within_drift(got, want, exact, names):
+    """Each of got's outputs within 3x the plain f32 decode's own drift
+    from a float64 one, + 1e-6 (B1's bar)."""
+    for name, a, b, e in zip(names, got, want, exact):
+        err = float((a - b).abs().max())
+        floor = float((b.double() - e).abs().max())
+        assert err <= 3 * floor + 1e-6, (name, err, floor)
+
+
+@pytest.mark.parametrize("route", ["chunk", "serving", "teacher"])
+@pytest.mark.parametrize("preset", ["deepvoice3_ljspeech", "deepvoice3_vctk",
+                                    "nyanko_ljspeech"])
+def test_b1_routes_at_preset_widths(dev, preset, route):
+    """B1 against its plain version at each preset's full width (VCTK with
+    its speakers' softsign biases) on its three routes: chunk mode at B =
+    32 over 64 steps in two launches (more steps than the 55 slots of the
+    longest ring), serving mode at S = 8 slots at their own positions over
+    two launches of 32 steps, and the teacher-forced route (a frame a
+    launch, 12 frames at B = 8). Bar: 3x the plain f32 decode's drift from
+    a float64 one + 1e-6, last_attended exact. In chunk mode, each stage
+    kind's products and epilogue, from the launches' stamps, sum to its
+    work."""
+    from deepvoice3_pytorch_tpu_torch.utils import profiling
+
+    names = ("outputs", "alignments", "done", "decoder_states")
+    B, Tk, steps = {"chunk": (32, 96, 64), "serving": (8, 96, 32),
+                    "teacher": (8, 40, 12)}[route]
+    x = _preset_decoder(dev, preset, B, Tk, 2 * steps)
+    cfg, pd, dc = x["cfg"], x["pd"], x["cfg"].decoder
+    out_dim = dc.in_dim * dc.r
+    if route == "chunk":
+        init = torch.zeros(B, out_dim, device=dev)
+        args = (x["mask"], init, steps, 2)
+        with profiling.recording() as w:
+            got = fd.fused_decode(pd, dc, x["fi"], *args, early_exit=False,
+                                  chunk=32)
+        want = fd.fused_decode_plain(pd, dc, x["fi"], *args,
+                                     early_exit=False, chunk=32)
+        exact = fd.fused_decode_plain(
+            x["pd64"], dc, x["fi64"], x["mask"], init.double(), steps, 2,
+            early_exit=False, chunk=32)
+        _within_drift(got[:4], want[:4], exact[:4], names)
+        assert torch.equal(got.last_attended, want.last_attended)
+        split = w.b1_split()
+        assert split["launches"] == 2
+        for part in split["kinds"].values():
+            assert part["products_ns"] + part["epilogue_ns"] == \
+                part["work_ns"]
+        convs = "HIGHWAY" if cfg.builder == "nyanko" else "GLU"
+        assert split["kinds"][convs]["products_ns"] > 0
+    elif route == "serving":
+        kern = fd.SlotDecoder(pd, dc, B, dev)
+        scales = [n * (1.0 / n) ** 0.5 for n in [64] * (B // 2)
+                  + [Tk] * (B - B // 2)]
+        si = _slot_inputs(x["fi"], x["lengths"], Tk, scales, kern.att_w)
+        si64 = _slot_inputs(x["fi64"], x["lengths"], Tk, scales, None)
+        plain = fd.PlainSlotDecoder(pd, dc, B, dev)
+        plain64 = fd.PlainSlotDecoder(x["pd64"], dc, B, dev,
+                                      dtype=torch.float64)
+        local = torch.arange(B, device=dev) * 16
+
+        def run(dec, inputs):
+            carry = dec.zero_carry()
+            dec.positions(carry)[:] = local
+            outs = []
+            for _ in range(2):
+                o = dec.new_outputs(steps, Tk)
+                dec.launch(inputs, carry, o, steps)
+                outs.append(o)
+            return [torch.cat(o, dim=1) for o in zip(*outs)], carry
+
+        got, c_k = run(kern, si)
+        want, c_p = run(plain, si)
+        exact, _ = run(plain64, si64)
+        _within_drift(got, want, exact, names)
+        la_p = c_p["state"]["last_attended"][:, plain.att].to(torch.int32)
+        assert torch.equal(c_k.last_attended[:, :len(plain.att)], la_p)
+        assert torch.equal(c_k.pos.long(), local + 2 * steps)
+    else:
+        frames = torch.rand(B, steps, out_dim,
+                            generator=torch.Generator().manual_seed(5)) \
+            .to(dev)
+        args = (x["mask"], None, steps, dc.min_decoder_steps)
+        fd.KERNEL.reset_counts()
+        got = fd.fused_decode(pd, dc, x["fi"], *args, test_inputs=frames)
+        assert fd.KERNEL.by_entry == {"chunk": steps}
+        want = fd.fused_decode_plain(pd, dc, x["fi"], *args,
+                                     test_inputs=frames)
+        exact = fd.fused_decode_plain(x["pd64"], dc, x["fi64"], *args,
+                                      test_inputs=frames.double())
+        _within_drift(got[:4], want[:4], exact[:4], names)
+        assert torch.equal(got.last_attended, want.last_attended)
+
+
 def test_fused_decode_carry_resumes(dev):
     """Two launches through the public FusedDecoder interface equal one."""
     cfg, pd, enc, pos, lengths = _decoder(dev)

@@ -248,6 +248,12 @@ def test_fold_b1_stamps_by_kind():
                                                   for s in hw))
     assert parts["HIGHWAY"]["barrier_ns"] == int(sum(
         t[4 + 3 * s] - t[3 + 3 * s] for s in hw))
+    # work splits at the first stamp: products, then the epilogue
+    assert parts["HIGHWAY"]["products_ns"] == int(sum(
+        t[2 + 3 * s] - passed[s] for s in hw))
+    for p in parts.values():
+        assert p["products_ns"] + p["epilogue_ns"] == p["work_ns"]
+        assert p["products_ns"] >= 0 and p["epilogue_ns"] >= 0
     assert profiling.fold_b1_stamps_by_kind(np.zeros(len(t)), steps,
                                             len(kinds), kinds) is None
     with pytest.raises(ValueError):
@@ -269,6 +275,8 @@ def test_window_split_by_kind_keeps_the_totals():
     assert {k: v for k, v in b.items() if k != "kinds"} == a
     for k in ("work_ns", "barrier_ns"):
         assert sum(p[k] for p in b["kinds"].values()) == a[k]
+    for p in b["kinds"].values():
+        assert p["products_ns"] + p["epilogue_ns"] == p["work_ns"]
     # a launch kept without kinds leaves the split by kind out
     kinded.stamps.append((launches[0], steps, len(kinds), None))
     assert "kinds" not in kinded.b1_split()
