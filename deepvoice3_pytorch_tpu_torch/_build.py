@@ -6,12 +6,12 @@ Each `csrc/<name>.cu` is compiled on first use with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v
 
-into `build/kernels/<name>-<hash>.so` next to the package (the hash covers
-the sources and flags, so an edit rebuilds and an unchanged tree reuses the
-library), then loaded with ctypes. The sources have a plain C interface and
-include no PyTorch header, so a build takes seconds. Every C entry point
-returns `cudaGetLastError()` after its launches; `Kernel.check` raises on a
-non-zero code.
+into `build/kernels/<name>-<hash>.so` next to the package by
+`compile_cached`, the port's one cached-build rule (`native/` builds its
+host library with it too), then loaded with ctypes. The sources have a plain
+C interface and include no PyTorch header, so a build takes seconds. Every C
+entry point returns `cudaGetLastError()` after its launches; `Kernel.check`
+raises on a non-zero code.
 """
 
 import ctypes
@@ -39,25 +39,41 @@ def _nvcc():
                        "toolkit (PATH or CUDA_HOME)")
 
 
-def build(source):
-    """Compile csrc/<source> if needed. Returns (library path, compiler
-    output; empty when the library was already built)."""
-    src = CSRC / source
-    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for dep in [src] + sorted(CSRC.glob("*.cuh")):
+def compile_cached(out_dir, stem, argv, deps):
+    """Run `argv -o <file>` unless out_dir/<stem>-<hash>.so exists. The hash
+    covers argv[1:] and the deps' contents: an edit rebuilds, an unchanged
+    tree reuses the library. argv[0] is the compiler or a function that finds
+    it, called only to build. The compiler writes a file of this process's
+    own, renamed into place, so no caller loads a half-written library.
+    Returns (path, compiler output, empty if the library existed)."""
+    args = [str(a) for a in argv[1:]]
+    digest = hashlib.sha1(" ".join(args).encode())
+    for dep in deps:
+        digest.update(dep.name.encode())
         digest.update(dep.read_bytes())
-    out = BUILD_DIR / ("%s-%s.so" % (src.stem, digest.hexdigest()[:16]))
+    out = Path(out_dir) / ("%s-%s.so" % (stem, digest.hexdigest()[:16]))
     if out.exists():
         return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(out.name + ".%d.tmp" % os.getpid())
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                         capture_output=True, text=True)
+    compiler = argv[0]() if callable(argv[0]) else argv[0]
+    try:
+        res = subprocess.run([compiler, *args, "-o", str(tmp)],
+                             capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError("cannot run %s: %s" % (compiler, e)) from e
     if res.returncode != 0:
-        raise RuntimeError("nvcc failed on %s:\n%s%s"
-                           % (src, res.stdout, res.stderr))
+        raise RuntimeError("%s failed on %s:\n%s%s"
+                           % (compiler, stem, res.stdout, res.stderr))
     os.replace(tmp, out)
     return out, res.stdout + res.stderr
+
+
+def build(source):
+    """Compile csrc/<source> if needed: compile_cached's (path, output)."""
+    src = CSRC / source
+    return compile_cached(BUILD_DIR, src.stem, [_nvcc, *NVCC_FLAGS, src],
+                          [src] + sorted(CSRC.glob("*.cuh")))
 
 
 class Kernel:

@@ -9,19 +9,18 @@ package's deepvoice3_pytorch_tpu/native/ (the same sources under `src/`).
     (`training.dataset.collate_native`).
 
 The library is built on first use with g++ into `build/native/
-libdv3native-<hash>.so` next to the package (the hash covers the sources
-and flags: an edit rebuilds, an unchanged tree reuses it). A failed build
-raises RuntimeError with the compiler's output; nothing falls back.
+libdv3native-<hash>.so` next to the package, by `_build.compile_cached`.
+A failed build raises RuntimeError with the compiler's output; nothing
+falls back.
 """
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
+
+from .. import _build
 
 SRC = Path(__file__).resolve().with_name("src")
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "native"
@@ -34,26 +33,9 @@ _lib = None
 
 def build():
     """Compile the library if needed. Returns its path."""
-    digest = hashlib.sha1(" ".join(CXX_FLAGS).encode())
-    for dep in sorted(SRC.iterdir()):
-        digest.update(dep.name.encode())
-        digest.update(dep.read_bytes())
-    out = BUILD_DIR / ("libdv3native-%s.so" % digest.hexdigest()[:16])
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(out.name + ".%d.tmp" % os.getpid())
-    try:
-        res = subprocess.run(
-            ["g++", *CXX_FLAGS, "-o", str(tmp)]
-            + [str(SRC / s) for s in SOURCES], capture_output=True, text=True)
-    except OSError as e:
-        raise RuntimeError("native library: cannot run g++: %s" % e) from e
-    if res.returncode != 0:
-        raise RuntimeError("native library: g++ failed:\n%s%s"
-                           % (res.stdout, res.stderr))
-    os.replace(tmp, out)
-    return out
+    argv = ["g++", *CXX_FLAGS, *(SRC / s for s in SOURCES)]
+    return _build.compile_cached(BUILD_DIR, "libdv3native", argv,
+                                 sorted(SRC.iterdir()))[0]
 
 
 def load():

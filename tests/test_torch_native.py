@@ -19,9 +19,9 @@ from deepvoice3_pytorch_tpu_torch.training import dataset as t_dataset
 
 import torch_port_common  # noqa: F401  (one torch thread a worker)
 
-pytestmark = pytest.mark.skipif(not j_native.is_available(),
-                                reason="the JAX package's library did not "
-                                       "build (no C++ toolchain)")
+needs_jax_library = pytest.mark.skipif(
+    not j_native.is_available(),
+    reason="the JAX package's library did not build (no C++ toolchain)")
 
 
 @pytest.fixture(scope="module")
@@ -47,6 +47,14 @@ def test_library_builds_into_the_build_dir():
     assert t_native.BUILD_DIR.parent.name == "build"
 
 
+def test_jax_library_loads():
+    """The root conftest builds the JAX package's library before any worker
+    collects; a worker that raced another to build it would skip the
+    comparisons below, and this names the fault."""
+    assert j_native.is_available()
+
+
+@needs_jax_library
 def test_features_equal_jax_native_and_torch(setup):
     hp, ap = setup
     mel_w = ap.mel_filters_np
@@ -60,6 +68,7 @@ def test_features_equal_jax_native_and_torch(setup):
         assert np.abs(mel_t - mel_d).max() < 2e-4
 
 
+@needs_jax_library
 def test_features_batch_equals_single_and_jax(setup):
     hp, ap = setup
     wavs = _wavs()
@@ -74,6 +83,7 @@ def test_features_batch_equals_single_and_jax(setup):
         assert np.abs(lt - ld).max() < 2e-4 and np.abs(mt - md).max() < 2e-4
 
 
+@needs_jax_library
 def test_inv_spectrogram_equals_jax_native(setup):
     hp, ap = setup
     t = np.arange(8000) / 22050.0
@@ -131,6 +141,7 @@ def _fake_corpus(root, n=10, speakers=False):
     return root
 
 
+@needs_jax_library
 @pytest.mark.parametrize("r,ds_step,speakers", [(4, 1, False), (1, 4, False),
                                                 (1, 4, True)])
 def test_collate_native_matches_numpy_and_jax(tmp_path, r, ds_step,
