@@ -73,7 +73,7 @@ class FusedDecodeOut(NamedTuple):
     alignments: Any       # (B, max_steps, Tk)
     done: Any             # (B, max_steps)
     decoder_states: Any   # (B, max_steps, C)
-    num_steps: int        # frames computed, chunk-rounded, <= max_steps
+    num_steps: int        # frames computed: min(launches x chunk, max_steps)
     last_attended: Any    # (B, n_att) int32 after the last computed frame
 
 
@@ -1236,39 +1236,45 @@ def make_slot_decoder(params, cfg, n_slots, device):
 
 def _decode_chunks(decoder_cls, params, cfg, inputs, mask, initial_input,
                    max_steps, min_steps, early_exit, chunk, test_inputs=None):
-    """The host loop: `chunk` frames per launch from a zero carry; with
-    early_exit, stop after the first chunk in which every sample's done
-    latch fired. With test_inputs (B, T, out_dim) the loop is teacher-forced
-    instead: one frame a launch, frame t reading test_inputs[:, t] as its
-    previous frame (initial_input, max_steps and early_exit unused), T
-    frames, as the JAX package's `decode_scan(test_inputs=)`."""
+    """The host loop: `chunk` frames per launch from a zero carry, the last
+    launch only the max_steps - t0 frames left; with early_exit, stop after
+    the first chunk in which every sample's done latch fired. While a window
+    records, counts the steps launched (`b1.steps_run`) and those returned
+    (`b1.steps_kept`, num_steps). With test_inputs (B, T, out_dim) the loop
+    is teacher-forced instead: one frame a launch, frame t reading
+    test_inputs[:, t] as its previous frame (initial_input, max_steps and
+    early_exit unused), T frames, as the JAX package's
+    `decode_scan(test_inputs=)`."""
     if test_inputs is not None:
         return _teacher_forced(decoder_cls, params, cfg, inputs, mask,
                                test_inputs)
     chunk = min(chunk, max_steps)
     n_chunks = -(-max_steps // chunk)
     with profiling.span("dv3.decode.prepare", "device"):
-        dec = decoder_cls(params, cfg, inputs, mask, n_chunks * chunk)
+        dec = decoder_cls(params, cfg, inputs, mask, max_steps)
         carry = dec.zero_carry(initial_input)
-        outs = dec.new_outputs(n_chunks * chunk)
+        outs = dec.new_outputs(max_steps)
         latch = torch.zeros(dec.B, dtype=torch.bool, device=dec.device)
     # while a window records, each launch of B1 stamps its stages
     kernel = isinstance(dec, FusedDecoder)
     n_stages = len(dec.layout.stages) if kernel else 0
     kinds = b1_stage_kinds(dec.layout.stages) if kernel else None
-    c = 0
+    c = run = 0
     while c < n_chunks and not (early_exit and bool(latch.all())):
         t0 = c * chunk
+        steps = min(chunk, max_steps - t0)      # the last launch: N - t0
         with profiling.span("dv3.decode.chunk", "device") as sp:
-            dec.launch(carry, outs, t0, chunk,
-                       trace=sp.stamps(n_stages, chunk, dec.device, kinds))
+            dec.launch(carry, outs, t0, steps,
+                       trace=sp.stamps(n_stages, steps, dec.device, kinds))
             if early_exit:
-                latch |= chunk_latch(outs[2][:, t0:t0 + chunk], t0,
+                latch |= chunk_latch(outs[2][:, t0:t0 + steps], t0,
                                      min_steps)
         c += 1
-    o, a, d, s = (x[:, :max_steps] for x in outs)
-    return FusedDecodeOut(o, a, d, s, min(c * chunk, max_steps),
-                          dec.last_attended(carry))
+        run += steps
+    num_steps = min(c * chunk, max_steps)
+    profiling.count("b1.steps_run", run)
+    profiling.count("b1.steps_kept", num_steps)
+    return FusedDecodeOut(*outs, num_steps, dec.last_attended(carry))
 
 
 def _teacher_forced(decoder_cls, params, cfg, inputs, mask, test_inputs):

@@ -75,14 +75,26 @@ def _close(got, want, tol):
     assert got.num_steps == want.num_steps
 
 
-@pytest.mark.parametrize("chunk,monotonic,masked,early_exit", [
-    (32, True, True, False), (3, True, True, False), (4, False, True, False),
-    (5, True, False, False), (4, True, True, True)])
-def test_fused_decode_kernel_matches_plain(dev, chunk, monotonic, masked,
-                                           early_exit):
-    cfg, pd, enc, pos, lengths = _decoder(dev, monotonic=monotonic)
-    T = 11
-    fi = dv3.fused_decode_inputs(pd, cfg.decoder, enc, pos)
+@pytest.mark.parametrize("name,T,chunk,monotonic,masked,early_exit", [
+    ("deepvoice3", 11, 32, True, True, False),
+    ("deepvoice3", 11, 3, True, True, False),
+    ("deepvoice3", 11, 4, False, True, False),
+    ("deepvoice3", 11, 5, True, False, False),
+    ("deepvoice3", 11, 4, True, True, True),
+    # a last launch of T - t0 < chunk steps
+    ("deepvoice3", 45, 32, True, True, False),
+    ("deepvoice3", 45, 32, True, True, True),
+    ("nyanko", 45, 32, True, True, False),
+    ("nyanko", 45, 32, True, True, True),
+    ("deepvoice3_multispeaker", 45, 32, True, True, False),
+    ("deepvoice3_multispeaker", 45, 32, True, True, True)])
+def test_fused_decode_kernel_matches_plain(dev, name, T, chunk, monotonic,
+                                           masked, early_exit):
+    if name == "deepvoice3":
+        cfg, pd, enc, pos, lengths = _decoder(dev, monotonic=monotonic)
+        fi = dv3.fused_decode_inputs(pd, cfg.decoder, enc, pos)
+    else:
+        cfg, pd, fi, lengths = _family_decoder(dev, name)
     mask = core.get_mask_from_lengths(lengths, 12) if masked else None
     init = torch.zeros(3, 16, device=dev)
     args = (pd, cfg.decoder, fi, mask, init, T, 2)
@@ -91,6 +103,43 @@ def test_fused_decode_kernel_matches_plain(dev, chunk, monotonic, masked,
     assert fd.KERNEL.launches == -(-got.num_steps // min(chunk, T))
     want = fd.fused_decode_plain(*args, early_exit=early_exit, chunk=chunk)
     _close(got, want, 1e-4)
+    assert got.outputs.shape[1] == T
+
+
+@pytest.mark.parametrize("name", ["deepvoice3", "nyanko",
+                                  "deepvoice3_multispeaker"])
+def test_short_last_launch_is_bit_equal_to_a_whole_chunk(dev, name):
+    """A decode of N = 70 frames (launches of 32, 32 and 6 steps) gives
+    frames, alignments, done and decoder states bit-equal to frames 0..69
+    of a decode of 96 (three whole chunks), and last_attended equal to
+    that decode's carry after frame 70 (its third chunk launched as 6
+    steps, then 26, which gives its frames bit for bit too)."""
+    if name == "deepvoice3":
+        cfg, pd, enc, pos, lengths = _decoder(dev)
+        fi = dv3.fused_decode_inputs(pd, cfg.decoder, enc, pos)
+    else:
+        cfg, pd, fi, lengths = _family_decoder(dev, name)
+    mask = core.get_mask_from_lengths(lengths, 12)
+    init = torch.zeros(3, 16, device=dev)
+    fd.KERNEL.launches = 0
+    short = fd.fused_decode(pd, cfg.decoder, fi, mask, init, 70, 2,
+                            early_exit=False, chunk=32)
+    assert fd.KERNEL.launches == 3 and short.num_steps == 70
+    whole = fd.fused_decode(pd, cfg.decoder, fi, mask, init, 96, 2,
+                            early_exit=False, chunk=32)
+    dec = fd.FusedDecoder(pd, cfg.decoder, fi, mask, 96)
+    carry = dec.zero_carry(init)
+    outs = dec.new_outputs(96)
+    for t0, steps in ((0, 32), (32, 32), (64, 6)):
+        dec.launch(carry, outs, t0, steps)
+    after_70 = dec.last_attended(carry).clone()
+    dec.launch(carry, outs, 70, 26)
+    names = ("outputs", "alignments", "done", "decoder_states")
+    for i, n in enumerate(names):
+        assert torch.equal(outs[i], getattr(whole, n)), n
+        assert torch.equal(getattr(short, n), getattr(whole, n)[:, :70]), n
+    assert torch.equal(dec.last_attended(carry), whole.last_attended)
+    assert torch.equal(short.last_attended, after_70)
 
 
 def test_fused_decode_kernel_long_text(dev):
@@ -1430,6 +1479,24 @@ def test_nyanko_b1_stamps_fold_by_kind(dev):
     hw = split["kinds"]["HIGHWAY"]
     share = (hw["work_ns"] + hw["barrier_ns"]) / split["launch_ns"]
     assert 0 < share < 1, json.dumps(split)
+
+    # 70 steps: two launches of 32, then a short one of the 6 left, whose
+    # buffer holds 2 + 3 * 6 * 25 stamps and folds by kind as the others
+    with profiling.recording() as w:
+        synthesis.tts_batch(params, cfg, ap, en, texts, max_decoder_steps=70,
+                            early_exit=False)
+    assert [steps for _, steps, _, _ in w.stamps] == [32, 32, 6]
+    buf, steps, n_stages, kinds = w.stamps[-1]
+    assert buf.numel() == 2 + 3 * steps * n_stages == 2 + 3 * 6 * 25
+    t = buf.cpu().numpy()
+    whole = profiling.fold_b1_stamps(t, steps, n_stages)
+    by_kind = profiling.fold_b1_stamps_by_kind(t, steps, n_stages, kinds)
+    assert whole is not None and by_kind is not None
+    for k in ("work_ns", "barrier_ns"):
+        assert sum(p[k] for p in by_kind.values()) == whole[k]
+    assert w.b1_split()["launches"] == 3
+    assert w.counters()["b1.steps_run"] == \
+        w.counters()["b1.steps_kept"] == 70
 
 
 def test_tp2_forward_through_b3_matches_plain(dev, tmp_path):

@@ -125,3 +125,83 @@ def test_chunked_early_exit_matches_jax(chunk, fc_bias):
     len_j = j_decode._length_from_done(d_j, min_steps, n_j)
     len_t = t_decode._length_from_done(out.done, min_steps, out.num_steps)
     assert (len_t.numpy() == np.asarray(len_j)).all()
+
+
+class _RecordingDecoder:
+    """The launch-and-carry interface of `PlainDecoder` over no model: each
+    launch appends its (t0, steps) to `launches`, checks the carry
+    follows on, and writes done = 1 at frame `fire` (None: never)."""
+
+    fire = None
+    launches = []
+
+    def __init__(self, params, cfg, inputs, mask, n_steps):
+        self.B, self.tk, self.C, self.out_dim = 2, 3, 4, 5
+        self.n_steps = n_steps
+        self.device, self.dtype = torch.device("cpu"), torch.float32
+        type(self).launches = []
+
+    new_outputs = t_fd._Decoder.new_outputs
+
+    def zero_carry(self, initial_input):
+        return {"t": 0}
+
+    def last_attended(self, carry):
+        return torch.full((self.B, 1), carry["t"], dtype=torch.int32)
+
+    def launch(self, carry, outputs, t0, steps, trace=None):
+        assert trace is None and carry["t"] == t0 and steps > 0
+        assert t0 + steps <= min(outputs[0].shape[1], self.n_steps)
+        self.launches.append((t0, steps))
+        for buf in outputs:
+            buf[:, t0:t0 + steps] = 1.0 + torch.arange(
+                t0, t0 + steps, dtype=buf.dtype).view(
+                    1, -1, *[1] * (buf.dim() - 2))
+        outputs[2][:, t0:t0 + steps] = 0.0
+        if self.fire is not None and t0 <= self.fire < t0 + steps:
+            outputs[2][:, self.fire] = 1.0
+        carry["t"] = t0 + steps
+
+
+@pytest.mark.parametrize("chunk", [4, 5, 32])
+@pytest.mark.parametrize("max_steps", [1, 31, 32, 33, 70, 217])
+@pytest.mark.parametrize("fire", [None, "early", "last"])
+def test_decode_chunks_launch_only_the_steps_asked(chunk, max_steps, fire,
+                                                   monkeypatch):
+    """The chunk loop: ceil(N / chunk) launches, the last of the N - t0
+    steps left, so the launches' steps sum to N when nothing exits early;
+    early exit stops after the chunk whose frames fired the latch (the
+    short last one included); num_steps is min(launches x chunk, N), as
+    with whole chunks; buffers of N frames; the counters `b1.steps_run`
+    and `b1.steps_kept` inside a recording window."""
+    from deepvoice3_pytorch_tpu_torch.utils import profiling
+
+    ch = min(chunk, max_steps)
+    n_chunks = -(-max_steps // ch)
+    want = [(c * ch, min(ch, max_steps - c * ch)) for c in range(n_chunks)]
+    min_steps = 0
+    at = {None: None, "early": min(ch, max_steps) - 1,
+          "last": max_steps - 1}[fire]
+    monkeypatch.setattr(_RecordingDecoder, "fire", at)
+    with profiling.recording() as w:
+        out = t_fd._decode_chunks(_RecordingDecoder, None, None, None, None,
+                                  None, max_steps, min_steps,
+                                  early_exit=fire is not None, chunk=chunk)
+    c = n_chunks if at is None else at // ch + 1
+    assert _RecordingDecoder.launches == want[:c]
+    assert out.num_steps == min(c * ch, max_steps)
+    if fire is None:
+        assert sum(s for _, s in _RecordingDecoder.launches) == max_steps
+    if fire == "last":
+        assert len(_RecordingDecoder.launches) == n_chunks
+    run = sum(s for _, s in _RecordingDecoder.launches)
+    assert w.counters() == {"b1.steps_run": run,
+                            "b1.steps_kept": out.num_steps}
+    assert run == out.num_steps
+    for buf in (out.outputs, out.alignments, out.done, out.decoder_states):
+        assert buf.shape[:2] == (2, max_steps)
+    frames = out.outputs[0, :, 0]
+    assert (frames[:out.num_steps] == torch.arange(
+        1, out.num_steps + 1)).all()
+    assert (frames[out.num_steps:] == 0).all()
+    assert (out.last_attended == out.num_steps).all()

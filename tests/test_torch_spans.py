@@ -4,7 +4,8 @@ tts_batch. Off, a span or a count keeps nothing and reads no clock; on
 (under `recording()` or a profiler session), one call of tts_batch gives
 one `dv3.tts_batch` span with its stages nested under it, each of its
 class, one call id, its shape, the bytes it copied and those of them in
-page-locked memory (none on the CPU); the spans line up
+page-locked memory (none on the CPU), the decode steps B1 ran and those
+it returned; the spans line up
 with the profiler's own events through the `dv3.clock` markers; kernel
 B1's stamps fold into prologue, work and barrier wait.
 
@@ -117,8 +118,10 @@ def test_one_call_gives_one_nested_span_tree(tiny):
     c = w.counters()
     kept = sum(r[k].nbytes for r in res
                for k in ("waveform", "mel", "linear", "alignment"))
-    assert sorted(c) == ["tts.bytes_kept", "tts.bytes_pinned",
-                         "tts.bytes_to_host"]
+    assert sorted(c) == ["b1.steps_kept", "b1.steps_run", "tts.bytes_kept",
+                         "tts.bytes_pinned", "tts.bytes_to_host"]
+    # the plain decoder's steps: every one of the STEPS asked, none more
+    assert c["b1.steps_run"] == c["b1.steps_kept"] == STEPS
     assert c["tts.bytes_kept"] == kept
     assert c["tts.bytes_pinned"] == 0           # the CPU's plain copies
     # the six copies: waveform, mel, linear, alignment (whole buffers),
@@ -218,7 +221,7 @@ def test_b1_stamps_on_the_main_path(tiny):
     """tts_batch on the card under recording(): every chunk span holds one
     launch of B1 (as the kernel's own launch counter counts them) with its
     stamps; the fold adds up; every byte copied to the host landed in
-    page-locked memory."""
+    page-locked memory; B1 ran the STEPS asked and no more."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     hp, cfg, params = tiny
@@ -238,3 +241,27 @@ def test_b1_stamps_on_the_main_path(tiny):
     assert len(res) == len(TEXTS)
     c = w.counters()
     assert c["tts.bytes_pinned"] == c["tts.bytes_to_host"] > 0
+    assert c["b1.steps_run"] == c["b1.steps_kept"] == STEPS
+
+
+def test_steps_kept_reader_over_a_profiled_call(tiny):
+    """The benchmark's reader of `b1.steps_kept.batch` over one tts_batch
+    profiled on the CPU: 100 % (the decode ran only the steps it returned);
+    no value from a window without the two counters, as from a program
+    that predates them."""
+    from dv3bench import bench, trace
+
+    _, tr = trace.profiled(torch, lambda: _call(tiny), cuda=False)
+    w = profiling.recorded()
+    root = next(s for s in w.spans if s.parent < 0)
+    shape = tuple(root.attrs[k] for k in ("rows", "text_padded",
+                                          "steps_asked"))
+    read = bench.load_metric("b1.steps_kept.batch")
+    assert read({"kind": "batch", "trace": tr,
+                 "calls": [shape + (None,)]}) == 100.0
+    full = w.counters()
+    for gone in ("b1.steps_run", "b1.steps_kept"):
+        w._counts = {k: v for k, v in full.items() if k != gone}
+        again = trace.Trace(tr.device, tr.host, tr.window_s)
+        assert read({"kind": "batch", "trace": again,
+                     "calls": [shape + (None,)]}) is None

@@ -9,7 +9,7 @@ so an earlier commit unpacked with `git archive` is measured the same
 way):
 
     python3 tools/b1_probe.py [--seed N] [--json-out PATH] [--batches N]
-        [--device cuda|cpu] [--outputs PATH] [--split 0|1]
+        [--device cuda|cpu] [--outputs PATH] [--steps N] [--split 0|1]
     python3 tools/b1_probe.py --compare A.pt B.pt
 
 Split (--split 1, the default): for each of the cells
@@ -28,11 +28,19 @@ writes it to --json-out): nvcc's -Xptxas -v report on fused_decode_kernel,
 and per cell and kind the summed ns, the stage-steps and the us a
 stage-step of each part, the launches' total, and the window's counters.
 
+On the card it then profiles one more pass (`dv3bench/trace.py`, as a
+`--trace 1` run does) and reports, per cell, B1's device seconds and
+launches in it and the device idle between consecutive B1 launches of
+one decode (`between_b1`: every gap from a launch's end to the next
+launch's start, less the kernels that ran inside it; the launches split
+into decodes by each batch's ceil(N / 32)), and the idle time that
+`dv3bench/spans.py` gives to the decode's spans (`idle_by_span_s`).
+
 --outputs PATH: B1's chunk mode at the LJSpeech, VCTK and nyanko presets'
-full widths (B = 32, Tk = 96, 64 steps in two launches of 32, seeded
-weights, keys and values) saved to PATH (frames, alignments, done,
-decoder states, last_attended). --compare A B: whether two such files
-hold the same numbers bit for bit.
+full widths (B = 32, Tk = 96, --steps steps, 64 by default: two launches
+of 32; seeded weights, keys and values) saved to PATH (frames,
+alignments, done, decoder states, last_attended). --compare A B: whether
+two such files hold the same numbers bit for bit.
 
 On the CPU (--device cpu, for a dry run with few --batches) B1 runs its
 plain version and writes no stamps.
@@ -79,6 +87,70 @@ def fold(stamps):
             acc[k + "_us"] = round(acc[k + "_ns"] / 1e3 / acc["stage_steps"],
                                    4)
     return out, launch_ns
+
+
+def _covered(intervals, a, b):
+    """Seconds of [a, b] (µs) that the union of intervals [(s, t)] covers."""
+    out, end = 0.0, a
+    for s, t in sorted(intervals):
+        s, t = max(s, end), min(t, b)
+        if t > s:
+            out += t - s
+            end = t
+    return out / 1e6
+
+
+def between_launches(tr, decodes):
+    """The device idle between consecutive B1 launches of one decode in
+    trace `tr`; decodes: the launches of each decode, in order. None when
+    the trace's B1 launches do not add up to them."""
+    from dv3bench.kernels import b1
+
+    launches = sorted((s, t) for n, s, t in tr.device
+                      if b1.PATTERN.search(n))
+    if len(launches) != sum(decodes):
+        return None
+    kernels = [(s, t) for _, s, t in tr.kernels()]
+    gaps, other, i = [], 0.0, 0
+    for n in decodes:
+        for (_, end), (start, _) in zip(launches[i:i + n - 1],
+                                        launches[i + 1:i + n]):
+            inside = [(s, t) for s, t in kernels if t > end and s < start]
+            busy = _covered(inside, end, start)
+            gaps.append(max(0.0, (start - end) / 1e6 - busy))
+            other += busy
+        i += n
+    if not gaps:
+        return {"gaps": 0}
+    us = sorted(g * 1e6 for g in gaps)
+    return {"gaps": len(gaps), "idle_s": sum(gaps),
+            "mean_us": sum(us) / len(us), "median_us": us[len(us) // 2],
+            "max_us": us[-1], "other_kernels_s": other}
+
+
+def traced_pass(torch, one_pass, decodes):
+    """One more pass under the profiler: B1's device time and launches,
+    the idle between its launches within a decode, and the idle that
+    dv3bench/spans.py gives to the decode's spans."""
+    from dv3bench import spans, trace
+    from dv3bench.kernels import b1
+
+    from deepvoice3_pytorch_tpu_torch.utils import profiling
+
+    _, tr = trace.profiled(torch, one_pass)
+    b1_s, b1_n = tr.device_seconds(lambda n: bool(b1.PATTERN.search(n)))
+    out = {"window_s": tr.window_s, "kernel_busy_s": tr.kernel_busy_s,
+           "b1_s": b1_s, "b1_launches": b1_n,
+           "between_b1": between_launches(tr, decodes)}
+    w = profiling.recorded()
+    roots = [s for s in w.spans if s.parent < 0 and s.name == spans.CALL]
+    r = spans.reading({"kind": "batch", "trace": tr, "calls": [
+        tuple(s.attrs.get(k) for k in ("rows", "text_padded", "steps_asked"))
+        for s in roots]})
+    out["idle_by_span_s"] = None if r is None else {
+        k: r["idle_s"].get(k, 0.0)
+        for k in ("dv3.decode", "dv3.decode.prepare", "dv3.decode.chunk")}
+    return out
 
 
 def ptxas_lines(log):
@@ -134,8 +206,14 @@ def cell_split(torch, repo, cell, seed, dev, n_batches=None):
     with profiling.recording() as w:
         one_pass()
     kinds, launch_ns = fold(w.stamps)
-    return {"kinds": kinds, "launch_ns": launch_ns,
-            "launches": len(w.stamps), "counters": w.counters()}
+    out = {"kinds": kinds, "launch_ns": launch_ns,
+           "launches": len(w.stamps), "counters": w.counters()}
+    if dev.type == "cuda":
+        from deepvoice3_pytorch_tpu_torch.ops import fused_decode as fd
+
+        out["traced"] = traced_pass(torch, one_pass, [
+            -(-steps // fd.DEFAULT_CHUNK) for _, _, steps in batches])
+    return out
 
 
 def preset_outputs(torch, repo, preset, seed, dev, B=32, Tk=96, steps=64):
@@ -186,6 +264,7 @@ def main():
     pa.add_argument("--batches", type=int, default=None)
     pa.add_argument("--device", default="cuda")
     pa.add_argument("--outputs", default=None)
+    pa.add_argument("--steps", type=int, default=64)
     pa.add_argument("--split", type=int, default=1)
     pa.add_argument("--compare", nargs=2, default=None)
     args = pa.parse_args()
@@ -206,7 +285,8 @@ def main():
         fd.KERNEL.lib                       # build: ptxas's report
         out["ptxas"] = ptxas_lines(fd.KERNEL.build_log)
     if args.outputs:
-        torch.save({p: preset_outputs(torch, repo, p, 3, dev)
+        torch.save({p: preset_outputs(torch, repo, p, 3, dev,
+                                      steps=args.steps)
                     for p in PRESETS}, args.outputs)
     if args.split:
         for cell in CELLS:
